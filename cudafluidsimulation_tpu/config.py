@@ -54,8 +54,9 @@ class FluidConfig:
     # stage order/constants, "gpu" replicates GPUFluidSim.cu's.
     variant: str = "gpu"
 
-    # Op backend: "ref" = pure-jnp oracle, "pallas" = fused TPU kernels,
-    # "auto" = pallas on TPU else ref.
+    # Op backend: "ref" = pure-jnp oracle compiled by XLA, "cuda" = ref with
+    # the Jacobi sweeps in the CUDA kernel (ops/jacobi_cuda.py, GPU only),
+    # "auto" = cuda on a GPU else ref.
     backend: str = "auto"
 
     # Fixed headless timestep. The reference uses the real frame dt
@@ -117,61 +118,19 @@ class FluidConfig:
     bloom_intense: float = 0.1
     bloom_duration: float = 5.0
 
-    # Pallas tuning: rows per Jacobi block and sweeps fused per HBM round trip.
-    block_rows: int = 256
-    jacobi_burst: int = 8
-    # Advection displacement bound (cells/step) for the pallas kernel AND the
-    # shard_map halo-exchange path (whose halo depth it sizes — both backends
-    # clamp backtrace taps to +/-max_displacement there).  Only the
-    # single-chip ref backend is unbounded (exact reference parity); the same
-    # backend="ref" config therefore differs single-chip vs sharded wherever
-    # |velocity|*dt exceeds this bound.  See ops/advect_pallas.py and
-    # parallel/shardmap_step.py; utils/health.py can flag clamped backtraces
-    # via its max-speed check.
+    # Advection displacement bound (cells/step) of the shard_map paths,
+    # whose halo depth it sizes: sharded backtrace taps clamp to
+    # +/-max_displacement rows (and columns on the 2-D mesh).  The
+    # single-device step is unbounded (exact reference parity), so the same
+    # config differs single-device vs sharded wherever |velocity|*dt exceeds
+    # this bound; utils/health.py flags clamped backtraces via its max-speed
+    # check.
     max_displacement: int = 15
-
-    # Opt-in bf16-packed dye advection (pallas backend): ~19% faster dye
-    # kernel at the cost of bf16 tap storage for 2 of 3 dye channels
-    # (max |err| ~5e-3 on [0, 1] dye; velocity/pressure stay exact f32,
-    # and quiet steps stay exact via the f32 fast path).  Off by default —
-    # parity requires f32 dye.  See ops/advect_pallas._advect_core_packed.
-    fast_dye: bool = False
-
-    # Opt-in bf16-packed velocity advection (pallas backend): both advected
-    # channels ARE (u, v) so they pack into ONE i32 plane — half the
-    # dynamic-window roll volume.  bf16 tap storage (~2^-9 relative) feeds
-    # back through self-advection, so long rollouts decorrelate from the
-    # f32 trajectory; quiet steps stay exact via the f32 fast path.  Off by
-    # default — parity requires f32 velocity.  See
-    # ops/advect_pallas._advect_core_packed_vel.
-    fast_velocity: bool = False
-
-    # Opt-in separable fast diffusion (pallas backend): the parity
-    # diffusion is a FIXED k-sweep linear blur M^k (the sweep's center term
-    # is the current iterate, cpuFluidSim.cpp:198-201 — a blur operator,
-    # not a converging solve); M^k's kernel is numerically rank-2
-    # separable, so two pairs of short 1-D tap passes (~36 FMA/cell at the
-    # reference's alpha=38.4/k=20) replace ~100 — diffusion is 100 of the
-    # 140 parity channel-sweeps/step.  ~1e-4 relative operator error,
-    # exact clamped-edge semantics; taps are designed at the config's
-    # NOMINAL dt (ops/fastdiffuse.py docstring).  Off by default — parity
-    # requires the exact sweep operator.
-    fast_diffuse: bool = False
-
-    # Runtime dual-path advection dispatch (pallas backend): a lax.cond
-    # routes quiet steps (realized |v|·dt < 1 on both axes) to a fully
-    # static ±1-window core that runs at the DMA floor (960x540 quiet
-    # 2.38 -> 0.58 ms/step; exactness-gated, ≤1 ulp vs the dynamic core).
-    # Both branches always compile; under vmap (ensembles) the cond lowers
-    # to a both-sides select whose static side costs ~3% — set False for
-    # always-driven ensembles to reclaim it.  See
-    # ops/advect_pallas._advect_core_static and scripts/fastpath_ab.py.
-    advect_fast_path: bool = True
 
     def __post_init__(self):
         if self.variant not in ("cpu", "gpu"):
             raise ValueError(f"variant must be 'cpu' or 'gpu', got {self.variant!r}")
-        if self.backend not in ("ref", "pallas", "auto"):
+        if self.backend not in ("ref", "cuda", "auto"):
             raise ValueError(f"unknown backend {self.backend!r}")
         if self.pressure_solver not in ("jacobi", "multigrid"):
             raise ValueError(f"unknown pressure_solver {self.pressure_solver!r}")
@@ -256,9 +215,10 @@ class FluidConfig:
           (rms(A p + div) < 0.05 — ~14x below what 40 Jacobi sweeps leave
           at 2048², usually 2 V-cycles) instead of fixed sweeps that stall
           on low-frequency error;
-        - ``max_displacement=31``: the advection backtrace bound covers
-          |v|*dt up to 31 cells/step (the driven benchmark flow peaks at
-          ~22), so backtraces are exact rather than clamped.
+        - ``max_displacement=31``: the sharded paths' advection bound
+          covers |v|*dt up to 31 cells/step (the driven 2048² orbit flow
+          peaks at ~22), so their backtraces are exact rather than clamped
+          (the single-device step is never bounded).
         """
         kw = dict(
             pressure_solver="multigrid",
@@ -279,8 +239,16 @@ class FluidConfig:
         return np.asarray(PALETTE, dtype=np.float32)
 
     def resolve_backend(self) -> str:
-        if self.backend != "auto":
-            return self.backend
+        """The op backend this config runs on JAX's default device; raises
+        when ``backend="cuda"`` is forced where there is no GPU (the kernel
+        has no interpret mode, and nothing falls back to ``ref``)."""
         import jax
 
-        return "pallas" if jax.default_backend() == "tpu" else "ref"
+        on_gpu = jax.default_backend() == "gpu"
+        if self.backend == "auto":
+            return "cuda" if on_gpu else "ref"
+        if self.backend == "cuda" and not on_gpu:
+            raise ValueError(
+                "backend='cuda' needs a GPU, but JAX's default backend is "
+                f"{jax.default_backend()!r}; use backend='ref' or 'auto'")
+        return self.backend

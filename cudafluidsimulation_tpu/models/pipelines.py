@@ -43,22 +43,12 @@ def make_step(config: FluidConfig, ops=None) -> StepFn:
         #    may provide the optional fused ``advect_both`` (the sharded
         #    paths do: one halo exchange carries velocity AND dye, since
         #    both advections tap pre-advection data).
-        #    state.vel_stats is the producer-emitted [max|u|, max|v|] bound
-        #    of (u, v) from the previous step's projection; the velocity
-        #    advection's output bound feeds the dye advection — so both
-        #    fast-path dispatch predicates are scalar compares, never
-        #    full-array reductions (ops.ref.vel_max contract).
         advect_both = getattr(ops, "advect_both", None)
         if advect_both is not None:
-            u, v, dye, vstats = advect_both(u, v, dye, dt, config.decay_rate,
-                                            vel_stats=state.vel_stats,
-                                            return_stats=True)
+            u, v, dye = advect_both(u, v, dye, dt, config.decay_rate)
         else:
-            u, v, vstats = ops.advect_velocity(u, v, dt, config.decay_rate,
-                                               vel_stats=state.vel_stats,
-                                               return_stats=True)
-            dye = ops.advect_dye(dye, u, v, dt, config.decay_rate,
-                                 vel_stats=vstats)
+            u, v = ops.advect_velocity(u, v, dt, config.decay_rate)
+            dye = ops.advect_dye(dye, u, v, dt, config.decay_rate)
 
         # -- vorticity confinement
         if cpu_variant:
@@ -84,12 +74,11 @@ def make_step(config: FluidConfig, ops=None) -> StepFn:
 
         # -- diffusion (velocity always; dye only where the reference's is
         #    observable — the CPU path's is a buffered-out no-op) + splat.
-        #    When both diffuse, they share one fused 5-channel pass with
+        #    When both diffuse, they share one 5-channel pass with
         #    per-channel coefficients (the reference used 2 CUDA streams for
         #    the same concurrency, GPUFluidSim.cu:636-639), and the splat
-        #    that follows (GPUFluidSim.cu:663) folds into the final
-        #    diffusion burst (same math, same order — amps carry
-        #    splat_gpu's exact scalar association).
+        #    that follows (GPUFluidSim.cu:663) is one op with it (same math,
+        #    same order — amps carry splat_gpu's exact scalar association).
         if config.color_diffusion_enabled and not cpu_variant:
             coeffs = jnp.asarray(
                 [config.velocity_diffusion] * 2 + [config.color_diffusion] * 3,
@@ -133,26 +122,17 @@ def make_step(config: FluidConfig, ops=None) -> StepFn:
                 config.splat_radius, color_eff
             )
 
-        # -- pressure projection (the step's final velocity producer: its
-        #    kernels emit next step's vel_stats bound for free)
+        # -- pressure projection (the step's final velocity producer; it
+        #    also returns next step's vel_stats bound)
         if config.pressure_solver == "multigrid":
-            ppmg = getattr(ops, "pressure_project_mg", None)
-            if ppmg is not None:
-                # fully-fused mg projection (divergence/residual/project
-                # folded into the smoothing launches — ops/multigrid.py)
-                u, v, p, vel_stats = ppmg(
-                    u, v, config.mg_cycles, tol=config.mg_tol,
-                    max_cycles=config.mg_max_cycles,
-                    half=config.half_divergence, return_stats=True)
-            else:
-                div = ops.divergence(u, v, config.half_divergence)
-                p = ops.pressure_solve_mg(div, config.mg_cycles,
-                                          tol=config.mg_tol,
-                                          max_cycles=config.mg_max_cycles)
-                u, v, vel_stats = ops.project(u, v, p, return_stats=True)
+            div = ops.divergence(u, v, config.half_divergence)
+            p = ops.pressure_solve_mg(div, config.mg_cycles,
+                                      tol=config.mg_tol,
+                                      max_cycles=config.mg_max_cycles)
+            u, v, vel_stats = ops.project(u, v, p, return_stats=True)
         else:
-            # single fused op (divergence folded into the first pressure
-            # burst, projection into the last on the pallas backend)
+            # one op for divergence -> Jacobi -> projection, so the sharded
+            # namespaces can fold the three stages' halo exchanges together
             u, v, p, vel_stats = ops.pressure_project(
                 u, v, config.pressure_iters, config.half_divergence,
                 return_stats=True,

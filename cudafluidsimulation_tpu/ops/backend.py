@@ -1,10 +1,10 @@
 """Backend resolution: one op API, two implementations.
 
 Mirrors the reference's interchangeable c_/g_ backend split (cpuFluidSim.h:8-11
-vs GPUFluidSIm.cuh:12-15) the TPU way: a namespace of pure functions with
-identical signatures, selected by config.  ``ref`` is the pure-jnp oracle;
-``pallas`` overrides the bandwidth-bound stencil ops with fused TPU kernels
-and falls back to ``ref`` for the rest.
+vs GPUFluidSIm.cuh:12-15) as a namespace of pure functions with identical
+signatures, selected by config.  ``ref`` is the pure-jnp oracle, compiled by
+XLA; ``cuda`` overrides the Jacobi stages with the temporal-blocked CUDA
+kernel (ops/jacobi_cuda.py) and keeps ``ref`` for the rest.
 """
 
 from __future__ import annotations
@@ -46,8 +46,8 @@ def _namespace(module, overrides=None) -> types.SimpleNamespace:
         if overrides and name in overrides:
             fn = overrides[name]
         setattr(ns, name, fn)
-    # optional hooks beyond the base API (e.g. pressure_project_mg,
-    # advect_both): consumed via getattr by models/pipelines.py
+    # optional hooks beyond the base API (e.g. advect_both): consumed via
+    # getattr by models/pipelines.py
     for name, fn in (overrides or {}).items():
         if name not in _OP_NAMES:
             setattr(ns, name, fn)
@@ -58,8 +58,8 @@ def get_ops(config: FluidConfig) -> types.SimpleNamespace:
     backend = config.resolve_backend()
     if backend == "ref":
         return _namespace(_ref)
-    if backend == "pallas":
-        from cudafluidsimulation_tpu.ops import pallas_kernels
+    if backend == "cuda":
+        from cudafluidsimulation_tpu.ops import jacobi_cuda
 
-        return _namespace(_ref, overrides=pallas_kernels.overrides(config))
+        return _namespace(_ref, overrides=jacobi_cuda.overrides())
     raise ValueError(f"unknown backend {backend!r}")

@@ -14,8 +14,8 @@ prolongation cell-centered bilinear (9-3-3-1 weights) — nearest-neighbor
 prolongation is below the order requirement for the 5-point Laplacian and
 measurably injects blocky error the post-smoothing cannot remove (at 2048²
 on a driven field, one NN cycle left rms residual 1.59 vs 0.134 bilinear,
-from a zero-guess 0.82).  All pure VPU reshape/shift ops that XLA fuses
-well on TPU.  Requires grid dims divisible by 2**levels; levels are chosen
+from a zero-guess 0.82).  All elementwise shift/stride ops that XLA
+fuses.  Requires grid dims divisible by 2**levels; levels are chosen
 automatically.
 """
 
@@ -32,9 +32,6 @@ _OMEGA = 0.8  # damped-Jacobi smoothing weight
 
 
 def _restrict(x):
-    # strided adds, NOT reshape(h//2,2,w//2,2).mean((1,3)): the reshape
-    # forces a TPU relayout costing ~4.5 ms at 2048² where this form costs
-    # ~0.1 ms (delta-timed; bit-identical result on the same data)
     r = x[0::2, :] + x[1::2, :]
     return (r[:, 0::2] + r[:, 1::2]) * 0.25
 
@@ -109,8 +106,7 @@ def make_vcycle(neighbors_fn, smooth_fn=None, bottom_fn=None,
     ``smooth_res_fn(p, rhs, nu1) -> (p', rhs - A p')`` overrides the
     pre-smooth AND the residual in one call (the shard_map paths ride the
     residual on the pre-smooth's halo exchange — one fewer exchange pair
-    per level per cycle; the single-chip pallas driver has its own fused
-    twin, pressure_project_mg).
+    per level per cycle).
 
     ``parts=True`` additionally returns the fine-level (probe, finish)
     split: ``probe(p, rhs, nu1, level) -> (p', res')`` is the top level's
@@ -185,49 +181,11 @@ def make_vcycle(neighbors_fn, smooth_fn=None, bottom_fn=None,
 _vcycle, _apply_a, _probe_scan, _finish_scan = make_vcycle(neighbors,
                                                            parts=True)
 
-# -- pallas burst smoothing (single-chip fast path) ---------------------------
-#
-# The default smoother above runs each sweep as ~5 HBM-bound XLA passes; on
-# big fine levels the burst kernel (jacobi_pallas.smooth_damped) runs all nu
-# sweeps per launch from one read of (p, rhs).  Small levels stay on the XLA
-# scan — tiny pallas launches measured slower than the scan they replace
-# (the round-3 nu=2 one-shot rejection); the threshold below is A/B-measured
-# at the whole-step level (scripts/mg_floor_probe.py).  Both smoothers are
-# the same arithmetic term-for-term, so solutions agree to f32 association.
-
-_BURST_SMOOTH_MIN_CELLS = 256 * 256
-
-
-def _burst_smooth_ok(h: int, w: int) -> bool:
-    return (h * w >= _BURST_SMOOTH_MIN_CELLS and w % 128 == 0
-            and h % 8 == 0)
-
-
-def _smooth_mixed(p, rhs, sweeps: int):
-    h, w = p.shape
-    if _burst_smooth_ok(h, w):
-        from cudafluidsimulation_tpu.ops import jacobi_pallas
-
-        return jacobi_pallas.smooth_damped(p, rhs, sweeps, _OMEGA)
-
-    def sweep(p, _):
-        l, r, b, t = neighbors(p)
-        p_jac = 0.25 * (l + r + b + t + rhs)
-        return p + _OMEGA * (p_jac - p), None
-
-    p, _ = jax.lax.scan(sweep, p, None, length=sweeps)
-    return p
-
-
-_vcycle_pallas, _, _probe_burst, _finish_burst = make_vcycle(
-    neighbors, smooth_fn=_smooth_mixed, parts=True)
-
-
 def probed_tol_loop(probe, finish, res_mean_fn, p0, first, tol, max_cycles):
     """Residual-targeted cycle driver with a FREE stopping test: each
     iteration completes the pending cycle then runs the NEXT cycle's
     pre-smooth ``probe(p) -> (p', res')`` — whose residual (which the cycle
-    computes anyway, fused into the smoothing launch on the pallas/sharded
+    computes anyway, riding the smoothing halo exchange on the sharded
     paths) doubles as the convergence check.  The old scheme paid a
     separate apply_a + reduction per cycle (+~2 ms/cycle at 8192²).
 
@@ -284,20 +242,16 @@ def run_cycles(vcycle, probe_fn, finish_fn, res_mean_fn, p, rhs, level,
 
 @functools.partial(jax.jit, static_argnames=("cycles", "nu1", "nu2",
                                              "coarse_sweeps", "tol",
-                                             "max_cycles", "smoother"))
+                                             "max_cycles"))
 def pressure_solve_mg(div, cycles: int = 2, nu1: int = 2, nu2: int = 2,
                       coarse_sweeps: int = 20, tol: float = 0.0,
-                      max_cycles: int = 8, smoother: str = "scan"):
+                      max_cycles: int = 8):
     """Multigrid solve of the pressure system from p=0 (same system and
     start state as ops.ref.pressure_solve, far better converged).
 
     ``tol > 0`` switches from a fixed ``cycles`` count to residual-targeted
     stopping: cycles run until rms(A p + div) < tol (cap ``max_cycles``;
-    the test rides the pre-smooth's residual — see probed_tol_loop).
-
-    ``smoother="burst"`` smooths big levels with the pallas trapezoid-burst
-    kernel (jacobi_pallas.smooth_damped; same arithmetic as the scan —
-    the pallas backend's override selects it, the ref oracle stays jnp)."""
+    the test rides the pre-smooth's residual — see probed_tol_loop)."""
     h, w = div.shape
     lv = _levels(h, w)
     rhs = -div
@@ -305,158 +259,12 @@ def pressure_solve_mg(div, cycles: int = 2, nu1: int = 2, nu2: int = 2,
     def res_mean(r):
         return jnp.mean(r * r)
 
-    vc, probe, fin = ((_vcycle_pallas, _probe_burst, _finish_burst)
-                      if smoother == "burst"
-                      else (_vcycle, _probe_scan, _finish_scan))
-    return run_cycles(vc, probe, fin, res_mean, jnp.zeros_like(div), rhs,
-                      lv, cycles, tol, max_cycles, nu1, nu2, coarse_sweeps)
+    return run_cycles(_vcycle, _probe_scan, _finish_scan, res_mean,
+                      jnp.zeros_like(div), rhs, lv, cycles, tol, max_cycles,
+                      nu1, nu2, coarse_sweeps)
 
 
 def residual_norm(p, div):
     """||A p + div||_rms — convergence diagnostic."""
     r = _apply_a(p) + div
     return jnp.sqrt(jnp.mean(r * r))
-
-
-# -- fully-fused single-chip multigrid projection -----------------------------
-#
-# The mg analog of jacobi_pallas.pressure_project: the r4 anatomy probe
-# (scripts/mg_anatomy_probe.py) put the burst-smoothed mg2 SOLVE at 0.81 ms
-# (2048²) while the mg STEP still paid ~0.7 ms over the fused Jacobi path on
-# QUIET frames — the separate divergence/project passes plus the per-level
-# residual passes around the smoother.  Here every non-bottom level's
-# pre-smooth emits its residual from the same launch, cycle 1's fine
-# pre-smooth folds the divergence in (reading u, v directly), and the last
-# cycle's fine post-smooth folds the projection (emitting u', v' and the
-# free vel_stats).  Restrict/prolong stay XLA (Mosaic cannot lower strided
-# slices; they measured ~0.14 ms each).  Arithmetic is expression-for-
-# expression the scan solver's, so solutions agree to f32 association.
-
-
-def _pre_smooth_res(p, rhs, nu, block_rows=256):
-    """(p', rhs - A p') after nu damped sweeps; p=None starts from zero.
-    Fused pallas launch on big exact levels (flat strips, or the
-    column-tiled twin on wide levels), scan + XLA residual elsewhere."""
-    h, w = rhs.shape
-    if _burst_smooth_ok(h, w):
-        from cudafluidsimulation_tpu.ops import jacobi_pallas
-
-        if (jacobi_pallas.mg_ends_fusable(h, w, nu, block_rows)
-                or jacobi_pallas.smooth_res_tiled_ok(h, w, nu, block_rows)):
-            return jacobi_pallas.smooth_res(
-                rhs if p is None else p, rhs, nu, _OMEGA,
-                block_rows=block_rows, from_zero=p is None)
-    if p is None:
-        p = jnp.zeros_like(rhs)
-    p = _smooth_mixed(p, rhs, nu)
-    return p, rhs - _apply_a(p)
-
-
-def _coarse_correction(res, level, nu1, nu2, coarse_sweeps):
-    """restrict -> recursive zero-start V-cycle -> prolong: the error
-    correction every non-bottom level applies."""
-    rhs_c = 4.0 * _restrict(res)
-    e = _vcycle_fused(None, rhs_c, level - 1, nu1, nu2, coarse_sweeps)
-    return _prolong(e)
-
-
-def _vcycle_fused(p, rhs, level, nu1, nu2, coarse_sweeps):
-    """One V-cycle with fused pre-smooth+residual launches; ``p=None``
-    means a zero start (every level below the fine one)."""
-    if level == 1:
-        if p is None:
-            p = jnp.zeros_like(rhs)
-        return _smooth_mixed(p, rhs, coarse_sweeps)
-    p, res = _pre_smooth_res(p, rhs, nu1)
-    p = p + _coarse_correction(res, level, nu1, nu2, coarse_sweeps)
-    return _smooth_mixed(p, rhs, nu2)
-
-
-@functools.partial(jax.jit, static_argnames=("cycles", "nu1", "nu2",
-                                             "coarse_sweeps", "tol",
-                                             "max_cycles", "half",
-                                             "return_stats", "block_rows"))
-def pressure_project_mg(u, v, cycles: int = 2, nu1: int = 2, nu2: int = 2,
-                        coarse_sweeps: int = 20, tol: float = 0.0,
-                        max_cycles: int = 8, half: bool = True,
-                        return_stats: bool = False, block_rows: int = 256):
-    """Fused divergence -> multigrid V-cycles -> projection: returns
-    (u', v', p[, vel_stats]).  Same solve as
-    divergence/pressure_solve_mg(smoother="burst")/project to f32
-    association; the ends ride single pallas launches where the geometry
-    allows (jacobi_pallas.mg_ends_fusable), with graceful per-piece
-    fallback otherwise.
-
-    ``tol > 0`` runs residual-targeted cycles (rms(A p + div) < tol, cap
-    ``max_cycles``) like pressure_solve_mg; the projection then runs as the
-    standalone kernel (a while_loop body must be cycle-uniform, so the
-    last cycle cannot specialize)."""
-    from cudafluidsimulation_tpu.ops import jacobi_pallas
-    from cudafluidsimulation_tpu.ops import ref as _ref
-
-    h, w = u.shape
-    lv = _levels(h, w)
-
-    fuse_first = (_burst_smooth_ok(h, w)
-                  and jacobi_pallas.mg_ends_fusable(h, w, nu1, block_rows))
-    fuse_last = (tol <= 0 and _burst_smooth_ok(h, w)
-                 and jacobi_pallas.mg_ends_fusable(h, w, nu2, block_rows))
-
-    # cycle 1 pre-smooth, divergence fused when the geometry allows
-    if fuse_first:
-        p, rhs, res = jacobi_pallas.first_smooth_res(
-            u, v, nu1, half, _OMEGA, block_rows=block_rows)
-    else:
-        div = (jacobi_pallas.divergence(u, v, half, block_rows=block_rows)
-               if jacobi_pallas.divergence_supported(h, w)
-               else _ref.divergence(u, v, half))
-        rhs = -div
-        p, res = _pre_smooth_res(None, rhs, nu1)
-
-    def finish_cycle(p, res):
-        p = p + _coarse_correction(res, lv, nu1, nu2, coarse_sweeps)
-        return _smooth_mixed(p, rhs, nu2)
-
-    def project_out(p):
-        if jacobi_pallas.divergence_supported(h, w):
-            return jacobi_pallas.project(u, v, p, block_rows=block_rows,
-                                         return_stats=return_stats)
-        return _ref.project(u, v, p, return_stats=return_stats)
-
-    def pack(uvp_st):
-        if return_stats:
-            u2, v2, st = uvp_st
-            return u2, v2, p_final, st
-        u2, v2 = uvp_st
-        return u2, v2, p_final
-
-    if tol <= 0:
-        for c in range(cycles):
-            if c > 0:
-                p, res = _pre_smooth_res(p, rhs, nu1)
-            last = c == cycles - 1
-            if last and fuse_last:
-                p = p + _coarse_correction(res, lv, nu1, nu2, coarse_sweeps)
-                return jacobi_pallas.last_smooth_project(
-                    p, rhs, u, v, nu2, _OMEGA, block_rows=block_rows,
-                    return_stats=return_stats)
-            p = finish_cycle(p, res)
-        p_final = p
-        return pack(project_out(p))
-
-    # residual-targeted: the stopping test rides the residual every
-    # pre-smooth launch already emits (probed_tol_loop) — no standalone
-    # apply_a + reduction per cycle.  (p, res) from the fused
-    # first_smooth_res above IS cycle 1's probe.
-    def probe(q):
-        return _pre_smooth_res(q, rhs, nu1)
-
-    def fin(q, r):
-        return finish_cycle(q, r)
-
-    def res_mean(r):
-        return jnp.mean(r * r)
-
-    p_final = probed_tol_loop(probe, fin, res_mean, jnp.zeros_like(rhs),
-                              (p, res), tol, max_cycles)
-    return pack(project_out(p_final))

@@ -3,7 +3,8 @@
 This backend plays the role the reference's CPU module plays for its CUDA
 module (the de-facto oracle, SURVEY.md §4): every op here is a direct, pure
 functional statement of the math in cpuFluidSim.cpp / GPUFluidSim.cu, cited
-per function.  The pallas backend is validated against these ops.
+per function.  The CUDA backend (ops/jacobi_cuda.py) is validated against
+these ops, and these against the NumPy oracle in tests/oracle.py.
 
 Conventions: fields are float32 (H, W) planes (dye is (3, H, W)); index order
 is [y, x]; y increases upward (the reference flips window y before it reaches
@@ -77,44 +78,28 @@ def _backtrace(u: Array, v: Array, dt) -> Tuple[Array, Array]:
 
 def vel_max(u: Array, v: Array) -> Array:
     """(2,) velocity magnitude stats [max|u|, max|v|] — the quantity the
-    advection fast-path predicate and the clamp-observability warning need
-    (realized backtrace displacement = stats * dt).  Producer ops emit this
-    about their OUTPUT velocity so consumers never re-read the arrays from
-    HBM (the pallas kernels compute it on blocks already resident in VMEM;
-    this jnp form is for the ref backend, where XLA fuses the reduction
-    into the producing elementwise graph)."""
+    clamp-observability warning needs (realized backtrace displacement =
+    stats * dt).  The projection returns it about its OUTPUT velocity, so
+    XLA fuses the reduction into the producing elementwise pass."""
     return jnp.stack([jnp.max(jnp.abs(u)), jnp.max(jnp.abs(v))])
 
 
-def advect_velocity(u: Array, v: Array, dt, decay_rate, *, vel_stats=None,
-                    return_stats: bool = False):
+def advect_velocity(u: Array, v: Array, dt, decay_rate):
     """Semi-Lagrangian self-advection with exponential decay
-    1/(1 + rate*dt) (cpuFluidSim.cpp:172-179, GPUFluidSim.cu:258-272).
-
-    ``vel_stats``: optional producer-emitted :func:`vel_max` bound of the
-    INPUT (u, v) — unused here (no dual dispatch), accepted for signature
-    parity with the pallas op.  ``return_stats``: also return
-    :func:`vel_max` of the advected output."""
-    del vel_stats
+    1/(1 + rate*dt) (cpuFluidSim.cpp:172-179, GPUFluidSim.cu:258-272)."""
     decay = 1.0 / (1.0 + decay_rate * dt)
     px, py = _backtrace(u, v, dt)
     u2 = bilerp(u, px, py) * decay
     v2 = bilerp(v, px, py) * decay
-    if return_stats:
-        return u2, v2, vel_max(u2, v2)
     return u2, v2
 
 
-def advect_dye(dye: Array, u: Array, v: Array, dt, decay_rate, *,
-               vel_stats=None) -> Array:
+def advect_dye(dye: Array, u: Array, v: Array, dt, decay_rate) -> Array:
     """Dye advection with the reference's gamma-ish fade:
     c = min(1, c^1.005 * decay) per channel (cpuFluidSim.cpp:158-169,
     GPUFluidSim.cu:275-294).  Both reference backends advect dye with the
     *already advected* velocity (cpuFluidSim.cpp:340-341 swap order;
-    GPUFluidSim.cu:620-622), so callers pass post-advection (u, v).
-    ``vel_stats`` (a bound on that velocity) is accepted for signature
-    parity with the pallas op and unused here."""
-    del vel_stats
+    GPUFluidSim.cu:620-622), so callers pass post-advection (u, v)."""
     decay = 1.0 / (1.0 + decay_rate * dt)
     px, py = _backtrace(u, v, dt)
     c = bilerp(dye, px, py)
@@ -231,8 +216,7 @@ def splat_tail(fields: Array, amps, last, radius, xs, ys) -> Array:
 
 def diffuse_multi_splat(fields: Array, dt, coeffs, iters: int,
                         amps, last, radius) -> Array:
-    """Per-channel diffusion followed by the gpu-variant splat, as one op —
-    the pallas backend fuses the splat into the final diffusion burst
+    """Per-channel diffusion followed by the gpu-variant splat, as one op
     (GPUFluidSim.cu runs diffuse :636-639 then applyForce :663 as separate
     kernels; the composition here is the same math in the same order)."""
     f = diffuse_multi(fields, dt, coeffs, iters)
@@ -255,16 +239,18 @@ def divergence(u: Array, v: Array, half: bool) -> Array:
     return 0.5 * d if half else d
 
 
-def pressure_solve(div: Array, iters: int) -> Array:
+def pressure_solve(div: Array, iters: int, init=None) -> Array:
     """``iters`` Jacobi sweeps of p = 0.25*(pL + pR + pB + pT - div) starting
     from p = 0 — both reference paths zero pressure every frame
-    (cpuFluidSim.cpp:238-245; GPUFluidSim.cu:685 memset after project)."""
+    (cpuFluidSim.cpp:238-245; GPUFluidSim.cu:685 memset after project).
+    ``init`` starts from another iterate (the sharded paths continue a
+    solve burst by burst)."""
 
     def sweep(p, _):
         l, r, b, t = neighbors(p)
         return (l + r + b + t - div) * 0.25, None
 
-    p0 = jnp.zeros_like(div)
+    p0 = jnp.zeros_like(div) if init is None else init
     p, _ = jax.lax.scan(sweep, p0, None, length=iters)
     return p
 
@@ -295,11 +281,10 @@ def pressure_project(u: Array, v: Array, iters: int, half: bool, *,
     p=0, gradient subtraction — as one op returning (u', v', p).
 
     The reference launches these as three separate kernels
-    (GPUFluidSim.cu:676-685); exposing them as one op lets the pallas
-    backend fuse divergence into the first pressure burst and projection
-    into the last (ops/jacobi_pallas.pressure_project), saving the
-    intermediate HBM round trips.  This jnp form is the exactness oracle for
-    that fusion."""
+    (GPUFluidSim.cu:676-685); exposing them as one op lets the sharded
+    paths fold the divergence and projection halo exchanges into the
+    pressure bursts'.  This jnp form is the exactness oracle for that
+    folding."""
     d = divergence(u, v, half)
     p = pressure_solve(d, iters)
     if return_stats:
@@ -432,9 +417,9 @@ def render_frame_core(dye: Array, pos, intense, radius, active,
     """pack_rgba + conditional bloom in ONE fused elementwise pass, bit-exact
     to ``where(active, apply_bloom(pack_rgba(dye), ...), pack_rgba(dye))``.
 
-    The composed form makes three HBM round trips over the RGBA frame (pack
-    write, bloom read+write, select read+read+write) — measured 11.4 ms at
-    8192² vs a ~1.5 ms read-dye/write-frame floor.  Here the uint8
+    The composed form makes three device-memory round trips over the RGBA
+    frame (pack write, bloom read+write, select read+read+write).  Here the
+    uint8
     quantization is emulated in f32 (``floor`` of the clipped value — the
     uint8 cast truncates, and every value in [0, 255] is exact in f32), so
     the bloom reads the same quantized values the reference's uchar4 kernel

@@ -2,9 +2,9 @@
 
 Every neighbor access in the reference clamps indices to the domain
 (the CLAMP macro, cpuFluidSim.cpp:8 / GPUFluidSim.cu:13), i.e. edge values
-replicate outward.  On TPU we express "value at (y+dy, x+dx), clamped" as a
-static slice + edge-replication concat, which XLA fuses into the surrounding
-elementwise work — no gather needed for the fixed-offset stencils.
+replicate outward.  "Value at (y+dy, x+dx), clamped" is a static slice +
+edge-replication concat, which XLA fuses into the surrounding elementwise
+work — no gather needed for the fixed-offset stencils.
 """
 
 from __future__ import annotations

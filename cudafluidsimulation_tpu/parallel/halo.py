@@ -1,12 +1,12 @@
 """Row-halo exchange over a mesh axis with lax.ppermute.
 
-The building block of the explicit multi-chip path (SURVEY.md §5): fields
+The building block of the explicit multi-device path (SURVEY.md §5): fields
 are row-sharded over the "x" mesh axis; each stencil/advection op first
-fetches ``width`` boundary rows from its neighbors over ICI, then computes
-locally on the padded array.  Physical domain edges (first/last shard) get
-clamped-BC padding instead: edge replication for 1-wide stencil halos and
-mirror (even) reflection for multi-sweep Jacobi bursts — the same exact
-Neumann ghost treatments the single-chip pallas kernels use.
+fetches ``width`` boundary rows from its neighbors, then computes locally on
+the padded array.  Physical domain edges (first/last shard) get clamped-BC
+padding instead: edge replication for 1-wide stencil halos and mirror (even)
+reflection for multi-sweep Jacobi bursts, whose clamped sweeps on the padded
+array then reproduce the single-device Neumann edges exactly.
 """
 
 from __future__ import annotations
@@ -95,7 +95,7 @@ def measure_halo_traffic(config, mesh, axis_name: str = "x",
     ``ppermute``/``all_gather`` XLA will emit), not a hand-model.
 
     Returns per-DEVICE, per-STEP numbers: collective op counts, bytes moved
-    over ICI, and derived sweeps-per-exchange for the Jacobi stages.  Tracing
+    between devices, and derived sweeps-per-exchange for the Jacobi stages.  Tracing
     is shape-only, so this works for 8192² without allocating fields.
 
     ``step_builder(config, mesh)`` overrides the step under measurement
@@ -147,9 +147,8 @@ def measure_halo_traffic(config, mesh, axis_name: str = "x",
                         counts["bytes"] += mult * int(
                             np.prod(aval.shape)) * aval.dtype.itemsize
             # a collective inside a scan body executes once per trip: carry
-            # the trip count down (the ref backend's sweep-per-exchange
-            # Jacobi hides its 1-deep exchange inside a lax.scan of length
-            # ``iters`` — counting it once undercounts the schedule iters-x)
+            # the trip count down (counting it once would undercount a
+            # sweep-per-exchange schedule iters-fold)
             m = mult * eqn.params.get("length", 1) if name == "scan" else mult
             for p in eqn.params.values():
                 for sub in (p if isinstance(p, (list, tuple)) else [p]):
@@ -168,7 +167,7 @@ def measure_halo_traffic(config, mesh, axis_name: str = "x",
         "ppermute_per_step": counts["ppermute"],
         "exchange_pairs_per_step": pairs,
         "all_gather_per_step": counts["all_gather"],
-        "ici_bytes_per_step_per_device": counts["bytes"],
+        "halo_bytes_per_step_per_device": counts["bytes"],
         "jacobi_sweeps_per_step": jacobi_sweeps,
         # sweeps per exchange over ALL exchanges (advect/vorticity included),
         # i.e. a lower bound on the Jacobi stages' burst depth

@@ -1,16 +1,16 @@
-"""Multi-chip scaling over a ``jax.sharding.Mesh``.
+"""Multi-device scaling over a ``jax.sharding.Mesh``.
 
 The reference is strictly single-GPU (SURVEY.md §2: no NCCL/MPI anywhere);
 this module is where the rebuild *exceeds* it (BASELINE.json config 5:
-8192² across a v4-8/v5e-8 mesh).
+8192² across a device mesh).
 
-Round-1 design: spatial domain decomposition by grid rows over a 1-D or 2-D
-mesh ("ens" x "x"), expressed with ``NamedSharding`` annotations on the state
-pytree + jit.  XLA's SPMD partitioner turns the clamped-edge shifts
+Auto-SPMD design: spatial domain decomposition by grid rows over a 1-D or
+2-D mesh ("ens" x "x"), expressed with ``NamedSharding`` annotations on the
+state pytree + jit.  XLA's SPMD partitioner turns the clamped-edge shifts
 (concat/slice stencils in ops.stencil) into 1-cell collective-permute halo
-exchanges over ICI automatically; the semi-Lagrangian gather is the one op it
-may all-gather (bounded-displacement shard_map halo advection is the planned
-optimization).  Ensemble members ride the "ens" axis — pure data parallelism.
+exchanges automatically; the semi-Lagrangian gather is the one op it may
+all-gather (parallel.shardmap_step bounds it with a d-row halo).  Ensemble
+members ride the "ens" axis — pure data parallelism.
 """
 
 from __future__ import annotations
@@ -79,18 +79,15 @@ def shard_state(state: FluidState, mesh: Mesh, batched: bool = False) -> FluidSt
     return jax.device_put(state, state_sharding(mesh, batched))
 
 
-def _auto_spmd_config(config: FluidConfig, mesh: Mesh) -> FluidConfig:
-    """XLA's SPMD partitioner treats ``pallas_call`` as an opaque custom
-    call it cannot partition, so on a >1-device mesh the auto-sharded path
-    must use the jnp ops (whose concat/slice stencils XLA partitions into
-    1-cell collective permutes itself).  The explicit shard_map paths
-    (parallel.shardmap_step / shardmap2d) are the pallas-composed
-    multi-chip paths — use those for per-shard burst kernels."""
-    if mesh.size > 1 and config.resolve_backend() == "pallas":
-        import dataclasses
-
-        return dataclasses.replace(config, backend="ref")
-    return config
+def _check_partitionable(config: FluidConfig, mesh: Mesh) -> None:
+    """XLA's SPMD partitioner cannot split the CUDA kernel's custom call (it
+    would replicate the whole field on every device), so on a >1-device
+    mesh this path takes the jnp ops only; the shard_map paths
+    (parallel.shardmap_step / shardmap2d) run the kernel per shard."""
+    if mesh.size > 1 and config.resolve_backend() != "ref":
+        raise ValueError(
+            "the auto-SPMD path partitions the jnp ops: pass backend='ref', "
+            "or use parallel.shardmap_step / shardmap2d for the kernel")
 
 
 def make_sharded_step(config: FluidConfig, mesh: Mesh, batched: bool = False):
@@ -100,7 +97,8 @@ def make_sharded_step(config: FluidConfig, mesh: Mesh, batched: bool = False):
     batch rides the "ens" mesh axis while rows ride "x" — the 2-D
     (dp x sp)-style layout.
     """
-    step = make_step(_auto_spmd_config(config, mesh))
+    _check_partitionable(config, mesh)
+    step = make_step(config)
     if batched:
         step = jax.vmap(step)
     ss = state_sharding(mesh, batched)
@@ -110,7 +108,8 @@ def make_sharded_step(config: FluidConfig, mesh: Mesh, batched: bool = False):
 
 def sharded_rollout(config: FluidConfig, mesh: Mesh, batched: bool = False):
     """jit-compiled lax.scan rollout with sharded carry."""
-    step = make_step(_auto_spmd_config(config, mesh))
+    _check_partitionable(config, mesh)
+    step = make_step(config)
     if batched:
         step = jax.vmap(step)
 

@@ -2,14 +2,15 @@
 
 The rows-only path (parallel.shardmap_step) stops scaling when a grid runs
 out of rows to split; this module shards BOTH axes over a ("rows", "cols")
-``jax.sharding.Mesh`` — the layout that maps onto a physical TPU torus
-(SURVEY.md §5's "2D jax.sharding.Mesh over the grid").  Every neighbor
-access is an explicit :func:`~.halo.exchange_2d` (rows, then columns of the
-row-padded array, so corners ride along — a k-sweep 5-point stencil's
-dependence is the L1 ball), boundary conditions apply only on true domain
-edges, and per-device compute reuses the single-chip pallas kernels on the
-halo-padded local views (the advect kernel takes global y0/x0 offsets and
-clamps taps against the GLOBAL domain).
+``jax.sharding.Mesh`` (SURVEY.md §5's "2D jax.sharding.Mesh over the
+grid").  The mesh shape follows the algorithm alone: a 2x2 mesh halves each
+shard's halo perimeter against 4x1 rows, and every device reaches every
+other at the same rate (four GPUs joined all to all by NVLink).  Every
+neighbor access is an explicit :func:`~.halo.exchange_2d` (rows, then
+columns of the row-padded array, so corners ride along — a k-sweep 5-point
+stencil's dependence is the L1 ball), boundary conditions apply only on true
+domain edges, and the Jacobi bursts run on the halo-padded local views
+through the single-device op namespace (the CUDA kernel on a GPU).
 
 Reference anchor: the reference is single-GPU (SURVEY.md §2, no NCCL/MPI);
 this is a beyond-parity subsystem.  Advection taps clamp to the exchanged
@@ -28,7 +29,9 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from cudafluidsimulation_tpu.config import FluidConfig
 from cudafluidsimulation_tpu.ops import ref
+from cudafluidsimulation_tpu.ops.backend import get_ops
 from cudafluidsimulation_tpu.parallel.halo import exchange_2d
+from cudafluidsimulation_tpu.parallel.shardmap_step import BURST
 from cudafluidsimulation_tpu.state import FluidState
 from cudafluidsimulation_tpu.utils.impulse import Impulse
 
@@ -55,18 +58,11 @@ def _neighbors_2d(ap):
 
 
 def sharded_ops_2d(row_axis: str, col_axis: str, h_global: int, w_global: int,
-                   d: int, use_pallas: bool = False,
-                   pallas_burst: int = 8, packed_vel: bool = False,
-                   packed_dye: bool = False,
-                   fast_path: bool = True,
-                   sep_diffuse=None) -> types.SimpleNamespace:
+                   d: int, local=ref,
+                   burst: int = BURST) -> types.SimpleNamespace:
     """Shard-local op API for a (rows x cols) spatial mesh (consumed by
-    models.pipelines.make_step, like parallel.shardmap_step.sharded_ops).
-    ``packed_vel``/``packed_dye``/``fast_path`` thread config.fast_velocity /
-    fast_dye / advect_fast_path into the sharded advect kernels (see
-    shardmap_step.sharded_ops); ``sep_diffuse`` = (separable fast-diffuse
-    ops, halo radius) threads config.fast_diffuse — one rmax-deep
-    corner-carrying mirror exchange replaces the per-burst exchanges."""
+    models.pipelines.make_step, like parallel.shardmap_step.sharded_ops,
+    whose ``local``/``burst`` it shares)."""
     ns = types.SimpleNamespace()
 
     def _bases(shape):
@@ -124,69 +120,27 @@ def sharded_ops_2d(row_axis: str, col_axis: str, h_global: int, w_global: int,
         st = jnp.stack([jnp.max(jnp.abs(u2)), jnp.max(jnp.abs(v2))])
         return lax.pmax(lax.pmax(st, row_axis), col_axis)
 
-    def _advect_pallas_2d(fields_p, up, vp, dt, decay_rate, mode,
-                          vel_stats=None, packed=False):
-        from cudafluidsimulation_tpu.ops import advect_pallas
-
-        hl = up.shape[0] - 2 * d
-        wl = up.shape[1] - 2 * d
-        r0, c0 = lax.axis_index(row_axis) * hl, lax.axis_index(col_axis) * wl
-        out = advect_pallas.advect(
-            fields_p, up, vp, dt, float(decay_rate), mode, d,
-            y0=r0 - d, h_phys=h_global, x0=c0 - d, w_phys=w_global, d_x=d,
-            vel_stats=vel_stats, packed=packed, fast_path=fast_path)
-        return out[:, d:-d, d:-d]
-
-    def advect_velocity(u, v, dt, decay_rate, vel_stats=None,
-                        return_stats=False):
-        if use_pallas:
-            fp = _x2d(jnp.stack([u, v]), d)
-            uv = _advect_pallas_2d(fp, fp[0], fp[1], dt, decay_rate, "field",
-                                   vel_stats=vel_stats, packed=packed_vel)
-        else:
-            decay = 1.0 / (1.0 + decay_rate * dt)
-            uv = _bilerp_2d(jnp.stack([u, v]), u, v, dt) * decay
-        if return_stats:
-            return uv[0], uv[1], _vmax_repl(uv[0], uv[1])
+    def advect_velocity(u, v, dt, decay_rate):
+        decay = 1.0 / (1.0 + decay_rate * dt)
+        uv = _bilerp_2d(jnp.stack([u, v]), u, v, dt) * decay
         return uv[0], uv[1]
 
-    def advect_dye(dye, u, v, dt, decay_rate, vel_stats=None):
-        if use_pallas:
-            zpad = [(d, d), (d, d)]
-            return _advect_pallas_2d(_x2d(dye, d), jnp.pad(u, zpad),
-                                     jnp.pad(v, zpad), dt, decay_rate, "dye",
-                                     vel_stats=vel_stats, packed=packed_dye)
+    def advect_dye(dye, u, v, dt, decay_rate):
         decay = 1.0 / (1.0 + decay_rate * dt)
         c = _bilerp_2d(dye, u, v, dt)
         return jnp.fmin(1.0, jnp.power(c, 1.005) * decay)
 
-    def advect_both(u, v, dye, dt, decay_rate, vel_stats=None,
-                    return_stats=False):
+    def advect_both(u, v, dye, dt, decay_rate):
         """Velocity + dye advection off ONE d-deep exchange_2d of the
         stacked 5-channel halo (see shardmap_step.advect_both: both
         advections tap PRE-advection data, and the dye backtrace's NEW
-        velocity needs only zero padding)."""
+        velocity taps stay inside the same halo)."""
         allp = _x2d(jnp.concatenate([jnp.stack([u, v]), dye]), d)
         decay = 1.0 / (1.0 + decay_rate * dt)
-        zpad = [(d, d), (d, d)]
-        if use_pallas:
-            uv = _advect_pallas_2d(allp[:2], allp[0], allp[1], dt,
-                                   decay_rate, "field", vel_stats=vel_stats,
-                                   packed=packed_vel)
-            u2, v2 = uv[0], uv[1]
-            st = _vmax_repl(u2, v2) if return_stats else None
-            dye2 = _advect_pallas_2d(allp[2:], jnp.pad(u2, zpad),
-                                     jnp.pad(v2, zpad), dt, decay_rate,
-                                     "dye", vel_stats=st, packed=packed_dye)
-            if return_stats:
-                return u2, v2, dye2, st
-            return u2, v2, dye2
         uv = _bilerp_2d_padded(allp[:2], u, v, dt) * decay
         u2, v2 = uv[0], uv[1]
         c = _bilerp_2d_padded(allp[2:], u2, v2, dt)
         dye2 = jnp.fmin(1.0, jnp.power(c, 1.005) * decay)
-        if return_stats:
-            return u2, v2, dye2, _vmax_repl(u2, v2)
         return u2, v2, dye2
 
     # -- stencil stages ---------------------------------------------------------
@@ -234,29 +188,18 @@ def sharded_ops_2d(row_axis: str, col_axis: str, h_global: int, w_global: int,
         s = w * vorticity / ln
         return u + fx * s * dt, v + fy * s * dt
 
-    def _jacobi(fields, alpha, iters):
-        inv_beta = 1.0 / (4.0 + alpha)
-
-        def sweep(x, _):
-            l, r, b, t = _neighbors_2d(_x2d(x, 1))
-            return (l + r + b + t + x * alpha) * inv_beta, None
-
-        out, _ = lax.scan(sweep, fields, None, length=iters)
-        return out
-
-    def _pallas_bursts_2d(fields, run_burst, iters, k, rhs=None):
-        """k local sweeps per 2-D (corner-carrying) halo exchange; the
-        single-chip burst kernel mirror-ghosts its y edges and clamp-ghosts
-        its x edges — both wrong for interior shard seams by at most one
-        row/col per sweep (trapezoid), i.e. exactly the kk-deep margin
-        sliced off; at true domain edges the mirror/clamp ghosts ARE the
-        Neumann condition."""
-        squeeze = fields.ndim == 2
-        x = fields[None] if squeeze else fields
+    def _bursts(fields, run_burst, iters, rhs=None):
+        """k local sweeps per 2-D (corner-carrying) halo exchange; the local
+        sweeps clamp at the padded array's edges, which is wrong at interior
+        shard seams by at most one row/col per sweep (trapezoid), i.e.
+        exactly the kk-deep margin sliced off; at true domain edges the
+        mirror fill IS the Neumann condition (see
+        shardmap_step.sharded_ops._bursts)."""
+        k = min(burst, iters)
         rp = None
         if rhs is not None:
-            k = min(k, iters)
             rp = _x2d(rhs, k, edge="mirror")
+        x = fields
         left = iters
         while left > 0:
             kk = min(k, left)
@@ -268,40 +211,16 @@ def sharded_ops_2d(row_axis: str, col_axis: str, h_global: int, w_global: int,
                 xp = run_burst(xp, rr, kk)
             x = xp[..., kk:-kk, kk:-kk]
             left -= kk
-        return x[0] if squeeze else x
-
-    def _sep_local(fields, op, dt, coeffs, iters):
-        """Separable fast diffuse on the local shard: one rmax-deep
-        corner-carrying mirror exchange, the single-chip op on the padded
-        array, slice both axes (see shardmap_step._sep_local)."""
-        sops, rm = sep_diffuse
-        xp = _x2d(fields, rm, edge="mirror")
-        return sops[op](xp, dt, coeffs, iters)[..., rm:-rm, rm:-rm]
+        return x
 
     def diffuse(fields, dt, diffusion, iters):
-        if sep_diffuse is not None:
-            return _sep_local(fields, "diffuse", dt, diffusion, iters)
-        if use_pallas:
-            from cudafluidsimulation_tpu.ops import jacobi_pallas
-
-            def burst(xp, kk):
-                return jacobi_pallas.diffuse(xp, dt, diffusion, kk, burst=kk)
-
-            return _pallas_bursts_2d(fields, burst, iters, pallas_burst)
-        return _jacobi(fields, diffusion * diffusion / dt, iters)
+        return _bursts(
+            fields, lambda xp, kk: local.diffuse(xp, dt, diffusion, kk), iters)
 
     def diffuse_multi(fields, dt, coeffs, iters):
-        coeffs = jnp.asarray(coeffs, jnp.float32)
-        if sep_diffuse is not None:
-            return _sep_local(fields, "diffuse_multi", dt, coeffs, iters)
-        if use_pallas:
-            from cudafluidsimulation_tpu.ops import jacobi_pallas
-
-            def burst(xp, kk):
-                return jacobi_pallas.diffuse_multi(xp, dt, coeffs, kk, burst=kk)
-
-            return _pallas_bursts_2d(fields, burst, iters, pallas_burst)
-        return _jacobi(fields, (coeffs * coeffs / dt)[:, None, None], iters)
+        return _bursts(
+            fields, lambda xp, kk: local.diffuse_multi(xp, dt, coeffs, kk),
+            iters)
 
     def diffuse_multi_splat(fields, dt, coeffs, iters, amps, last, radius):
         # shard-local composition with GLOBAL coordinates (the splat tail is
@@ -317,22 +236,10 @@ def sharded_ops_2d(row_axis: str, col_axis: str, h_global: int, w_global: int,
         return 0.5 * dd if half else dd
 
     def pressure_solve(div, iters):
-        if use_pallas:
-            from cudafluidsimulation_tpu.ops import jacobi_pallas
-
-            def burst(pp, dd, kk):
-                return jacobi_pallas.pressure_solve(dd, kk, burst=kk,
-                                                    init=pp[0])[None]
-
-            return _pallas_bursts_2d(jnp.zeros_like(div), burst, iters,
-                                     pallas_burst, rhs=div)
-
-        def sweep(p, _):
-            l, r, b, t = _neighbors_2d(_x2d(p, 1))
-            return (l + r + b + t - div) * 0.25, None
-
-        p, _ = lax.scan(sweep, jnp.zeros_like(div), None, length=iters)
-        return p
+        return _bursts(
+            jnp.zeros_like(div),
+            lambda pp, dd, kk: local.pressure_solve(dd, kk, init=pp),
+            iters, rhs=div)
 
     def project(u, v, p, return_stats=False):
         l, r, b, t = _neighbors_2d(_x2d(p, 1))
@@ -358,11 +265,9 @@ def sharded_ops_2d(row_axis: str, col_axis: str, h_global: int, w_global: int,
         core, rows first then columns of the row-fixed array — the same
         corner-carrying order as exchange_2d, so the result is exactly what
         exchange_2d(div, k+1, mirror) would have produced."""
-        from cudafluidsimulation_tpu.ops import jacobi_pallas
-
         if iters == 0:
             return u, v, jnp.zeros_like(u)
-        k = min(pallas_burst, iters)
+        k = min(burst, iters)
         hd = k + 1
         nr, nc = lax.axis_size(row_axis), lax.axis_size(col_axis)
         ri, ci = lax.axis_index(row_axis), lax.axis_index(col_axis)
@@ -389,14 +294,14 @@ def sharded_ops_2d(row_axis: str, col_axis: str, h_global: int, w_global: int,
             kk = min(k, left)
             keep = 1 if left == kk else 0
             if p is None:
-                pp = jacobi_pallas.pressure_solve(rp, kk, burst=kk)
+                pp = local.pressure_solve(rp, kk)
                 cut = hd - keep
             else:
                 dep = kk + keep
                 rr = (rp if dep == hd
                       else rp[hd - dep : dep - hd, hd - dep : dep - hd])
                 xp = _x2d(p, dep, edge="mirror")
-                pp = jacobi_pallas.pressure_solve(rr, kk, burst=kk, init=xp)
+                pp = local.pressure_solve(rr, kk, init=xp)
                 cut = kk
             p = pp[cut:-cut, cut:-cut] if cut else pp
             left -= kk
@@ -407,8 +312,8 @@ def sharded_ops_2d(row_axis: str, col_axis: str, h_global: int, w_global: int,
         return u2, v2, ps
 
     def pressure_project(u, v, iters, half, return_stats=False):
-        kf = min(pallas_burst, max(iters, 1)) + 2
-        if use_pallas and min(u.shape[-2], u.shape[-1]) >= kf:
+        kf = min(burst, max(iters, 1)) + 2
+        if min(u.shape[-2], u.shape[-1]) >= kf:
             u2, v2, p = _fused_pressure_project(u, v, iters, half)
         else:
             u2, v2, p = _composed_pressure_project(u, v, iters, half)
@@ -595,35 +500,8 @@ def _local_ops_2d(config: FluidConfig, mesh: Mesh):
         raise ValueError(
             f"shard {wl}x{hl} smaller than max_displacement={d}; use fewer "
             f"shards, a larger grid, or a smaller bound")
-    use_pallas = config.resolve_backend() == "pallas"
-    if use_pallas:
-        import dataclasses
-
-        from cudafluidsimulation_tpu.ops import advect_pallas, jacobi_pallas
-
-        k = min(config.jacobi_burst, hl, wl)
-        local_jac = dataclasses.replace(config, ny=hl + 2 * k, nx=wl + 2 * k)
-        # flat_supported, NOT supported: the local advect runs with
-        # d_x=d (x-sharded view), which pins it to the flat kernel — the
-        # column-tiled rescue path would treat shard seams as physical
-        # x edges
-        use_pallas = (jacobi_pallas.supported(local_jac)
-                      and advect_pallas.flat_supported(hl + 2 * d,
-                                                       wl + 2 * d, 3, d))
-    sep = None
-    if config.fast_diffuse and use_pallas:
-        from cudafluidsimulation_tpu.ops import fastdiffuse
-
-        sep = fastdiffuse.sharded_sep(config)
-    return sharded_ops_2d(
-        "rows", "cols", config.ny, config.nx, d,
-        use_pallas=use_pallas,
-        pallas_burst=min(config.jacobi_burst, hl, wl),
-        packed_vel=config.fast_velocity,
-        packed_dye=config.fast_dye,
-        fast_path=config.advect_fast_path,
-        sep_diffuse=sep,
-    )
+    return sharded_ops_2d("rows", "cols", config.ny, config.nx, d,
+                          local=get_ops(config), burst=min(BURST, hl, wl))
 
 
 def make_shardmap2d_step(config: FluidConfig, mesh: Mesh):
@@ -636,9 +514,7 @@ def make_shardmap2d_step(config: FluidConfig, mesh: Mesh):
     ss = _state_spec2d()
     imp_spec = Impulse(pos=P(None), last_pos=P(None), pressed=P(), dt=P())
     sharded = shard_map(
-        step, mesh=mesh, in_specs=(ss, imp_spec), out_specs=ss,
-        check_vma=(config.resolve_backend() != "pallas"),
-    )
+        step, mesh=mesh, in_specs=(ss, imp_spec), out_specs=ss)
     return jax.jit(sharded)
 
 
@@ -658,7 +534,5 @@ def make_shardmap2d_rollout(config: FluidConfig, mesh: Mesh):
     imp_spec = Impulse(pos=P(None, None), last_pos=P(None, None),
                        pressed=P(None), dt=P(None))
     sharded = shard_map(
-        run, mesh=mesh, in_specs=(ss, imp_spec), out_specs=ss,
-        check_vma=(config.resolve_backend() != "pallas"),
-    )
+        run, mesh=mesh, in_specs=(ss, imp_spec), out_specs=ss)
     return jax.jit(sharded)

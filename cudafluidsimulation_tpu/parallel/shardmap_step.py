@@ -1,17 +1,18 @@
-"""Explicit multi-chip step: shard_map + ppermute halo exchange.
+"""Explicit multi-device step: shard_map + ppermute halo exchange.
 
 The auto-SPMD path (parallel.sharded) lets XLA partition the jnp stencils;
 this module is the hand-laid-out alternative the 8192² config calls for
 (SURVEY.md §5, BASELINE.json config 5): fields row-sharded over the "x" mesh
 axis, every neighbor access an explicit ``exchange_rows`` (1-cell for
-stencils, ``max_displacement`` rows for advection) riding ICI, boundary
-conditions applied only on true domain edges.
+stencils, ``max_displacement`` rows for advection), boundary conditions
+applied only on true domain edges.
 
 Implementation trick: the whole physics pipeline (models.pipelines.make_step)
 is written against an op *namespace*, so this module just provides a
 shard-local implementation of the same op API — advection gathers locally in
-the halo-padded array, Jacobi sweeps exchange-then-sweep — and reuses
-make_step unchanged.  Per-device work can later swap in the pallas kernels.
+the halo-padded array, Jacobi stages exchange a k-deep halo once per k local
+sweeps, which run through the single-device op namespace (the CUDA kernel on
+a GPU, ``ops.ref`` elsewhere) — and reuses make_step unchanged.
 """
 
 from __future__ import annotations
@@ -25,9 +26,14 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 from cudafluidsimulation_tpu.config import FluidConfig
 from cudafluidsimulation_tpu.ops import ref
+from cudafluidsimulation_tpu.ops.backend import get_ops
 from cudafluidsimulation_tpu.parallel.halo import exchange_rows, neighbors_padded
 from cudafluidsimulation_tpu.state import FluidState
 from cudafluidsimulation_tpu.utils.impulse import Impulse
+
+# Jacobi sweeps per halo exchange on the sharded paths: each exchange is
+# BURST rows deep and the shard runs BURST local sweeps before the next one.
+BURST = 8
 
 
 def _global_rows(shape, axis_name):
@@ -42,8 +48,8 @@ _gather_local = ref._gather2d  # same flatten/take/reshape gather helper
 
 
 def _bilerp_sharded(field, u, v, dt, h_global, d, axis_name):
-    """Backtrace + bilerp within a d-row halo (displacement bound d, same
-    contract as ops.advect_pallas)."""
+    """Backtrace + bilerp within a d-row halo (vertical displacement bound
+    d: taps beyond it clamp to the halo's last row)."""
     fp = exchange_rows(field, d, axis_name, edge="clamp")
     return _bilerp_padded(fp, u, v, dt, h_global, d, axis_name)
 
@@ -80,130 +86,49 @@ def _bilerp_padded(fp, u, v, dt, h_global, d, axis_name):
     return top * (1.0 - ty) + bot * ty
 
 
-def sharded_ops(axis_name: str, h_global: int, d: int,
-                use_pallas: bool = False,
-                pallas_burst: int = 8, packed_vel: bool = False,
-                packed_dye: bool = False,
-                fast_path: bool = True,
-                sep_diffuse=None) -> types.SimpleNamespace:
+def sharded_ops(axis_name: str, h_global: int, d: int, local=ref,
+                burst: int = BURST) -> types.SimpleNamespace:
     """Shard-local implementation of the op API consumed by make_step.
 
-    With ``use_pallas`` the Jacobi stages run the single-chip burst kernels
-    per shard, exchanging a k-deep halo over ICI once per k sweeps instead of
-    every sweep (see _pallas_jacobi_bursts for the exactness argument).
-    ``packed_vel``/``packed_dye``/``fast_path`` thread the single-chip advect
-    kernel options (config.fast_velocity / fast_dye / advect_fast_path) into
-    the sharded advections — without this the fast flags would silently
-    no-op on multi-chip runs (round-3 advisor finding).  ``sep_diffuse`` =
-    (separable fast-diffuse ops, halo radius) threads config.fast_diffuse
-    the same way (ops.fastdiffuse.sharded_sep): ONE rmax-deep mirror
-    exchange replaces the per-burst k-deep exchanges."""
+    The Jacobi stages exchange a ``burst``-deep halo once per ``burst``
+    sweeps, which run on the padded shard through ``local`` — the
+    single-device op namespace (``ops.ref`` or the CUDA backend's); see
+    ``_bursts`` for the exactness argument."""
     ns = types.SimpleNamespace()
 
     def _vmax_repl(u2, v2):
         """Replicated ops.ref.vel_max of a row-sharded velocity: local
         reduction + a (2,)-element pmax over the mesh axis.  Keeps
-        state.vel_stats spec P(None) truthful and makes every shard's
-        advect fast-path dispatch uniform."""
+        state.vel_stats spec P(None) truthful."""
         st = jnp.stack([jnp.max(jnp.abs(u2)), jnp.max(jnp.abs(v2))])
         return lax.pmax(st, axis_name)
 
-    def _advect_pallas_local(fields, up, vp, dt, decay_rate, mode,
-                             vel_stats=None, packed=False):
-        """Run the single-chip pallas advect kernel on the d-halo-padded
-        local view: the kernel clamps taps against the GLOBAL domain via the
-        y0/h_phys offsets, so padded rows (sliced off afterwards) only waste
-        a little compute.  ``up``/``vp`` are already padded — their halo rows
-        only influence discarded output, so zero padding suffices there."""
-        from cudafluidsimulation_tpu.ops import advect_pallas
-
-        hl = up.shape[0] - 2 * d
-        fp = exchange_rows(fields, d, axis_name, edge="clamp")
-        g0 = lax.axis_index(axis_name) * hl - d  # global row of padded row 0
-        out = advect_pallas.advect(fp, up, vp, dt, float(decay_rate), mode,
-                                   d, y0=g0, h_phys=h_global,
-                                   vel_stats=vel_stats, packed=packed,
-                                   fast_path=fast_path)
-        return out[:, d:-d, :]
-
-    def advect_velocity(u, v, dt, decay_rate, vel_stats=None,
-                        return_stats=False):
-        if use_pallas:
-            # the one d-deep exchange of the sampled stack doubles as the
-            # padded velocity for the backtrace positions
-            fp = exchange_rows(jnp.stack([u, v]), d, axis_name, edge="clamp")
-            from cudafluidsimulation_tpu.ops import advect_pallas
-
-            hl = u.shape[0]
-            g0 = lax.axis_index(axis_name) * hl - d
-            out = advect_pallas.advect(fp, fp[0], fp[1], dt,
-                                       float(decay_rate), "field", d,
-                                       y0=g0, h_phys=h_global,
-                                       vel_stats=vel_stats,
-                                       packed=packed_vel,
-                                       fast_path=fast_path)
-            uv = out[:, d:-d, :]
-        else:
-            # one stacked sample: a single d-row halo exchange and one set
-            # of backtrace/clip index computations for both components
-            decay = 1.0 / (1.0 + decay_rate * dt)
-            uv = _bilerp_sharded(jnp.stack([u, v]), u, v, dt, h_global, d,
-                                 axis_name) * decay
-        if return_stats:
-            return uv[0], uv[1], _vmax_repl(uv[0], uv[1])
+    def advect_velocity(u, v, dt, decay_rate):
+        # one stacked sample: a single d-row halo exchange and one set of
+        # backtrace/clip index computations for both components
+        decay = 1.0 / (1.0 + decay_rate * dt)
+        uv = _bilerp_sharded(jnp.stack([u, v]), u, v, dt, h_global, d,
+                             axis_name) * decay
         return uv[0], uv[1]
 
-    def advect_dye(dye, u, v, dt, decay_rate, vel_stats=None):
-        if use_pallas:
-            zpad = [(d, d), (0, 0)]
-            return _advect_pallas_local(dye, jnp.pad(u, zpad), jnp.pad(v, zpad),
-                                        dt, decay_rate, "dye",
-                                        vel_stats=vel_stats,
-                                        packed=packed_dye)
+    def advect_dye(dye, u, v, dt, decay_rate):
         decay = 1.0 / (1.0 + decay_rate * dt)
         c = _bilerp_sharded(dye, u, v, dt, h_global, d, axis_name)
         return jnp.fmin(1.0, jnp.power(c, 1.005) * decay)
 
-    def advect_both(u, v, dye, dt, decay_rate, vel_stats=None,
-                    return_stats=False):
+    def advect_both(u, v, dye, dt, decay_rate):
         """Velocity + dye advection off ONE d-deep exchange of the stacked
         5-channel (velocity, dye) halo: both advections tap PRE-advection
         data (the reference's double buffer, GPUFluidSim.cu:620-622), so the
         dye halo rides the velocity exchange even though its backtrace uses
-        the NEW velocity — whose halo rows only influence discarded output
-        (zero padding suffices, as in advect_dye)."""
+        the NEW velocity, whose taps stay inside the same halo."""
         allp = exchange_rows(jnp.concatenate([jnp.stack([u, v]), dye]), d,
                              axis_name, edge="clamp")
         decay = 1.0 / (1.0 + decay_rate * dt)
-        if use_pallas:
-            from cudafluidsimulation_tpu.ops import advect_pallas
-
-            hl = u.shape[0]
-            g0 = lax.axis_index(axis_name) * hl - d
-            uv = advect_pallas.advect(allp[:2], allp[0], allp[1], dt,
-                                      float(decay_rate), "field", d,
-                                      y0=g0, h_phys=h_global,
-                                      vel_stats=vel_stats,
-                                      packed=packed_vel,
-                                      fast_path=fast_path)[:, d:-d, :]
-            u2, v2 = uv[0], uv[1]
-            st = _vmax_repl(u2, v2) if return_stats else None
-            zpad = [(d, d), (0, 0)]
-            dye2 = advect_pallas.advect(allp[2:], jnp.pad(u2, zpad),
-                                        jnp.pad(v2, zpad), dt,
-                                        float(decay_rate), "dye", d,
-                                        y0=g0, h_phys=h_global,
-                                        vel_stats=st, packed=packed_dye,
-                                        fast_path=fast_path)[:, d:-d, :]
-            if return_stats:
-                return u2, v2, dye2, st
-            return u2, v2, dye2
         uv = _bilerp_padded(allp[:2], u, v, dt, h_global, d, axis_name) * decay
         u2, v2 = uv[0], uv[1]
         c = _bilerp_padded(allp[2:], u2, v2, dt, h_global, d, axis_name)
         dye2 = jnp.fmin(1.0, jnp.power(c, 1.005) * decay)
-        if return_stats:
-            return u2, v2, dye2, _vmax_repl(u2, v2)
         return u2, v2, dye2
 
     def curl(u, v):
@@ -250,37 +175,25 @@ def sharded_ops(axis_name: str, h_global: int, d: int,
         s = w * vorticity / ln
         return u + fx * s * dt, v + fy * s * dt
 
-    def _jacobi(fields, alpha, iters):
-        inv_beta = 1.0 / (4.0 + alpha)
+    def _bursts(fields, run_burst, iters, rhs=None):
+        """Exchange a k-row halo once per k local sweeps.
 
-        def sweep(x, _):
-            xp = exchange_rows(x, 1, axis_name)
-            l, r, b, t = neighbors_padded(xp)
-            return (l + r + b + t + x * alpha) * inv_beta, None
-
-        out, _ = lax.scan(sweep, fields, None, length=iters)
-        return out
-
-    def _pallas_jacobi_bursts(fields, run_burst, iters, k, rhs=None):
-        """Exchange a k-row halo once per k local pallas sweeps.
-
-        The local burst kernel mirror-fills ITS array edges; for interior
-        shards those edges are exchanged halo rows whose mirror-corruption
-        stays within k rows of the edge (trapezoid argument) — exactly the
-        rows sliced off — while for true domain edges the clamp-equivalent
-        mirror is the correct Neumann ghost.  Net: bit-exact global Jacobi
-        with 1/k-th the ICI exchanges of the sweep-by-sweep path.
+        The local sweeps clamp at the padded array's edges.  For interior
+        shards those edges are exchanged halo rows, and the error the clamp
+        makes there travels one row per sweep (the trapezoid argument), so
+        it stays within the k rows sliced off; at true domain edges the
+        mirror fill is the clamped-edge Neumann ghost.  Net: global Jacobi,
+        with 1/k-th the exchanges of a sweep-by-sweep schedule.
 
         ``rhs`` (e.g. the pressure divergence) is constant across bursts, so
         its halo is exchanged ONCE at full depth and sliced down for a
         smaller final partial chunk.
         """
-        squeeze = fields.ndim == 2
-        x = fields[None] if squeeze else fields
+        k = min(burst, iters)
         rp = None
         if rhs is not None:
-            k = min(k, iters)
             rp = exchange_rows(rhs, k, axis_name, edge="mirror")
+        x = fields
         left = iters
         while left > 0:
             kk = min(k, left)
@@ -292,41 +205,16 @@ def sharded_ops(axis_name: str, h_global: int, d: int,
                 xp = run_burst(xp, rr, kk)
             x = xp[..., kk:-kk, :]
             left -= kk
-        return x[0] if squeeze else x
-
-    def _sep_local(fields, op, dt, coeffs, iters):
-        """Separable fast diffuse on the local shard: one rmax-deep mirror
-        exchange (exact HS-symmetric ghosts at true edges, real rows at
-        seams), the single-chip op on the padded array (its own edge
-        reflection only touches the discarded halo output rows), slice."""
-        sops, rm = sep_diffuse
-        xp = exchange_rows(fields, rm, axis_name, edge="mirror")
-        return sops[op](xp, dt, coeffs, iters)[..., rm:-rm, :]
+        return x
 
     def diffuse(fields, dt, diffusion, iters):
-        if sep_diffuse is not None:
-            return _sep_local(fields, "diffuse", dt, diffusion, iters)
-        if use_pallas:
-            from cudafluidsimulation_tpu.ops import jacobi_pallas
-
-            def burst(xp, kk):
-                return jacobi_pallas.diffuse(xp, dt, diffusion, kk, burst=kk)
-
-            return _pallas_jacobi_bursts(fields, burst, iters, pallas_burst)
-        return _jacobi(fields, diffusion * diffusion / dt, iters)
+        return _bursts(
+            fields, lambda xp, kk: local.diffuse(xp, dt, diffusion, kk), iters)
 
     def diffuse_multi(fields, dt, coeffs, iters):
-        coeffs = jnp.asarray(coeffs, jnp.float32)
-        if sep_diffuse is not None:
-            return _sep_local(fields, "diffuse_multi", dt, coeffs, iters)
-        if use_pallas:
-            from cudafluidsimulation_tpu.ops import jacobi_pallas
-
-            def burst(xp, kk):
-                return jacobi_pallas.diffuse_multi(xp, dt, coeffs, kk, burst=kk)
-
-            return _pallas_jacobi_bursts(fields, burst, iters, pallas_burst)
-        return _jacobi(fields, (coeffs * coeffs / dt)[:, None, None], iters)
+        return _bursts(
+            fields, lambda xp, kk: local.diffuse_multi(xp, dt, coeffs, kk),
+            iters)
 
     def diffuse_multi_splat(fields, dt, coeffs, iters, amps, last, radius):
         # shard-local composition: local diffusion, then the splat tail with
@@ -345,25 +233,10 @@ def sharded_ops(axis_name: str, h_global: int, d: int,
         return 0.5 * dd if half else dd
 
     def pressure_solve(div, iters):
-        if use_pallas:
-            from cudafluidsimulation_tpu.ops import jacobi_pallas
-
-            def burst(pp, dd, kk):
-                # the shared loop threads (1, H, W); the kernel API is 2-D
-                return jacobi_pallas.pressure_solve(dd, kk, burst=kk,
-                                                    init=pp[0])[None]
-
-            return _pallas_jacobi_bursts(jnp.zeros_like(div), burst, iters,
-                                         pallas_burst, rhs=div)
-
-        def sweep(p, _):
-            pp = exchange_rows(p, 1, axis_name)
-            l, r, b, t = neighbors_padded(pp)
-            return (l + r + b + t - div) * 0.25, None
-
-        p0 = jnp.zeros_like(div)
-        p, _ = lax.scan(sweep, p0, None, length=iters)
-        return p
+        return _bursts(
+            jnp.zeros_like(div),
+            lambda pp, dd, kk: local.pressure_solve(dd, kk, init=pp),
+            iters, rhs=div)
 
     def project(u, v, p, return_stats=False):
         pp = exchange_rows(p, 1, axis_name)
@@ -381,9 +254,8 @@ def sharded_ops(axis_name: str, h_global: int, d: int,
 
     def _fused_pressure_project(u, v, iters, half):
         """Divergence -> burst Jacobi -> project with the per-op halo
-        exchanges folded into the burst exchanges (the sharded analog of
-        ops.jacobi_pallas.pressure_project; the reference launches all
-        three separately, GPUFluidSim.cu:676-685).
+        exchanges folded into the burst exchanges (the reference launches
+        all three separately, GPUFluidSim.cu:676-685).
 
         One mirror exchange of the velocity stack at depth k+2 makes the
         locally-computed divergence valid to depth k+1 (one derivative eats
@@ -399,13 +271,12 @@ def sharded_ops(axis_name: str, h_global: int, d: int,
         Physical-edge halos of the computed divergence are overwritten with
         the even reflection of the core (the Neumann ghost needs
         d(-1-j) = d(j), not the divergence of mirrored velocity — same fix
-        as the single-chip _first_pressure_kernel)."""
-        from cudafluidsimulation_tpu.ops import jacobi_pallas
+        as the clamped divergence of ops.ref.divergence)."""
         from cudafluidsimulation_tpu.ops.stencil import shift_x
 
         if iters == 0:
             return u, v, jnp.zeros_like(u)
-        k = min(pallas_burst, iters)
+        k = min(burst, iters)
         hd = k + 1
         n = lax.axis_size(axis_name)
         idx = lax.axis_index(axis_name)
@@ -433,13 +304,13 @@ def sharded_ops(axis_name: str, h_global: int, d: int,
             # data), so retained rows at distance >= kk are exact.
             keep = 1 if left == kk else 0
             if p is None:  # burst 1: p=0, no pressure exchange needed
-                pp = jacobi_pallas.pressure_solve(rp, kk, burst=kk)
+                pp = local.pressure_solve(rp, kk)
                 cut = hd - keep
             else:
                 dep = kk + keep
                 rr = rp if dep == hd else rp[hd - dep : dep - hd]
                 xp = exchange_rows(p, dep, axis_name, edge="mirror")
-                pp = jacobi_pallas.pressure_solve(rr, kk, burst=kk, init=xp)
+                pp = local.pressure_solve(rr, kk, init=xp)
                 cut = kk
             p = pp[cut:-cut] if cut else pp
             left -= kk
@@ -451,11 +322,10 @@ def sharded_ops(axis_name: str, h_global: int, d: int,
         return u2, v2, ps
 
     def pressure_project(u, v, iters, half, return_stats=False):
-        if use_pallas and u.shape[0] >= min(pallas_burst, max(iters, 1)) + 2:
+        if u.shape[0] >= min(burst, max(iters, 1)) + 2:
             u2, v2, p = _fused_pressure_project(u, v, iters, half)
         else:
-            # shard-local composition (the single-chip fused kernels need
-            # velocity halos the exchange path provides per-op anyway)
+            # shards too short for the fused exchange depth
             u2, v2, p = _composed_pressure_project(u, v, iters, half)
         if return_stats:
             return u2, v2, p, _vmax_repl(u2, v2)
@@ -508,9 +378,9 @@ def sharded_ops(axis_name: str, h_global: int, d: int,
         with plain clamped stencils, slice k rows off: corruption from the
         padded-array edges travels one row per sweep (trapezoid argument) so
         the kept interior is bit-exact vs sweep-by-sweep exchange; mirror
-        fill at true domain edges is the Neumann ghost (same invariant as
-        ops/jacobi_pallas._edge_fill).  ICI exchanges drop ~k-fold vs the
-        round-1 1-row-per-sweep smoother."""
+        fill at true domain edges is the Neumann ghost (the same invariant
+        as ``_bursts``).  Exchanges drop ~k-fold vs a 1-row-per-sweep
+        smoother."""
         from cudafluidsimulation_tpu.ops.multigrid import _OMEGA
         from cudafluidsimulation_tpu.ops.stencil import neighbors as _nb
 
@@ -655,33 +525,8 @@ def _local_ops(config: FluidConfig, mesh: Mesh, axis_name: str):
             f"{config.max_displacement}; use fewer shards, a taller grid, or "
             f"a smaller max_displacement"
         )
-    use_pallas = config.resolve_backend() == "pallas"
-    if use_pallas:
-        # gate on the LOCAL shard geometry the kernels will actually see
-        # (the single-chip backend performs the same per-op gating)
-        from cudafluidsimulation_tpu.ops import advect_pallas, jacobi_pallas
-        import dataclasses
-
-        k = min(config.jacobi_burst, hl)
-        local_jac = dataclasses.replace(config, ny=hl + 2 * k)
-        d = config.max_displacement
-        use_pallas = jacobi_pallas.supported(local_jac) and advect_pallas.supported(
-            hl + 2 * d, config.nx, 3, d
-        )
-    sep = None
-    if config.fast_diffuse and use_pallas:
-        from cudafluidsimulation_tpu.ops import fastdiffuse
-
-        sep = fastdiffuse.sharded_sep(config)
-    return sharded_ops(
-        axis_name, config.ny, config.max_displacement,
-        use_pallas=use_pallas,
-        pallas_burst=min(config.jacobi_burst, hl),
-        packed_vel=config.fast_velocity,
-        packed_dye=config.fast_dye,
-        fast_path=config.advect_fast_path,
-        sep_diffuse=sep,
-    )
+    return sharded_ops(axis_name, config.ny, config.max_displacement,
+                       local=get_ops(config), burst=min(BURST, hl))
 
 
 def make_shardmap_step(config: FluidConfig, mesh: Mesh, axis_name: str = "x"):
@@ -695,17 +540,13 @@ def make_shardmap_step(config: FluidConfig, mesh: Mesh, axis_name: str = "x"):
     ss = _state_spec(axis_name)
     imp_spec = Impulse(pos=P(None), last_pos=P(None), pressed=P(), dt=P())
     sharded = shard_map(
-        step, mesh=mesh, in_specs=(ss, imp_spec), out_specs=ss,
-        # pallas_call outputs carry no vma annotation; keep the check on for
-        # the pure-jnp op set
-        check_vma=(config.resolve_backend() != "pallas"),
-    )
+        step, mesh=mesh, in_specs=(ss, imp_spec), out_specs=ss)
     return jax.jit(sharded)
 
 
 def make_shardmap_rollout(config: FluidConfig, mesh: Mesh, axis_name: str = "x"):
     """jit(shard_map(scan(step))): whole rollout with the scan inside the
-    shard_map so halo exchanges ride ICI with no per-step dispatch."""
+    shard_map so halo exchanges need no per-step dispatch."""
     from jax import shard_map
 
     from cudafluidsimulation_tpu.models.pipelines import make_step
@@ -720,9 +561,5 @@ def make_shardmap_rollout(config: FluidConfig, mesh: Mesh, axis_name: str = "x")
     imp_spec = Impulse(pos=P(None, None), last_pos=P(None, None),
                        pressed=P(None), dt=P(None))
     sharded = shard_map(
-        run, mesh=mesh, in_specs=(ss, imp_spec), out_specs=ss,
-        # pallas_call outputs carry no vma annotation; keep the check on for
-        # the pure-jnp op set
-        check_vma=(config.resolve_backend() != "pallas"),
-    )
+        run, mesh=mesh, in_specs=(ss, imp_spec), out_specs=ss)
     return jax.jit(sharded)

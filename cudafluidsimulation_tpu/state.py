@@ -8,8 +8,8 @@ immutable pytree, which gives functional double-buffering, checkpointing,
 vmap-able ensembles, and shard-able fields for free.
 
 Layout is planar-channel (separate (H, W) arrays / a leading channel axis)
-rather than the reference's interleaved float2/float3: on TPU the last axis
-maps to 128-wide lanes, so stencils want W contiguous.
+rather than the reference's interleaved float2/float3: neighbouring threads
+then read neighbouring cells of one channel, so stencil loads coalesce.
 """
 
 from __future__ import annotations
@@ -36,13 +36,12 @@ class FluidState(NamedTuple):
     #   splat's force center memory (cpuFluidSim.cpp:31-32,317,409)
     step: jnp.ndarray  # i32 step counter
     vel_stats: jnp.ndarray  # (2,) [max|u|, max|v|] UPPER BOUND of (u, v),
-    #   emitted by the producing kernel (pressure projection) about blocks
-    #   already in VMEM (ops.ref.vel_max contract).  Consumers: the advection
-    #   fast-path dispatch predicate (free instead of two full-array HBM
-    #   reductions) and always-on clamp observability (realized backtrace
-    #   displacement = vel_stats * dt).  The cpu-variant boundary strip only
-    #   zeroes rows, so the bound stays valid after it.  No reference
-    #   counterpart (the reference has no runtime stats).
+    #   returned by the pressure projection that produced them
+    #   (ops.ref.vel_max), so always-on clamp observability (realized
+    #   backtrace displacement = vel_stats * dt) costs no extra pass.  The
+    #   cpu-variant boundary strip only zeroes rows, so the bound stays valid
+    #   after it.  No reference counterpart (the reference has no runtime
+    #   stats).
 
 
 def init_state(config: FluidConfig) -> FluidState:

@@ -7,9 +7,9 @@ harness level without touching the hot loop: run segments, check between
 segments, and report the segment where health was lost.
 
 Health also surfaces the REALIZED advection displacement (max |u|*dt,
-max |v|*dt): the pallas kernel and the sharded meshes bound backtrace taps
-at ``config.max_displacement`` cells (vertical single-chip/rows-mesh, both
-axes on the 2-D mesh), so a flow whose realized displacement exceeds the
+max |v|*dt): the sharded meshes bound backtrace taps at
+``config.max_displacement`` cells (vertical on the rows mesh, both axes on
+the 2-D mesh), so a flow whose realized displacement exceeds the
 bound silently diverges from the reference's unbounded backtrace
 (GPUFluidSim.cu:267).  :func:`displacement_check` turns that into a warning
 instead of silent clamping.
@@ -79,8 +79,8 @@ def check_health(state: FluidState, max_speed: Optional[float] = None) -> Health
 def displacement_check(health: Health, dt: float, bound: int,
                        axes: str = "y") -> Optional[str]:
     """Warning string when the realized backtrace displacement exceeds the
-    advection bound on the clamped axes ('y' for single-chip pallas and the
-    rows mesh — x taps there are exact; 'xy' for the 2-D mesh), else None."""
+    advection bound on the clamped axes ('y' for the rows mesh — x taps
+    there are exact; 'xy' for the 2-D mesh), else None."""
     dx, dy = health.realized_displacement(dt)
     clamped = []
     if dy > bound:
@@ -99,20 +99,15 @@ def displacement_check(health: Health, dt: float, bound: int,
     )
 
 
-def clamp_axes(backend: str, mesh: str = "none") -> str:
+def clamp_axes(mesh: str = "none") -> str:
     """Which advection axes the active execution path clamps at
     ``max_displacement``: '' = none (exact unbounded backtrace),
     'y' = vertical only, 'xy' = both.
 
-    Single-chip ref is exact; single-chip pallas bounds vertical taps only
-    (ops/advect_pallas.py); both sharded meshes bound vertical taps (halo
-    depth) and the 2-D mesh additionally bounds horizontal taps
+    The single-device step is exact; both sharded meshes bound vertical
+    taps (halo depth) and the 2-D mesh additionally bounds horizontal taps
     (parallel/shardmap2d.py)."""
-    if mesh == "2d":
-        return "xy"
-    if mesh == "rows":
-        return "y"
-    return "y" if backend == "pallas" else ""
+    return {"2d": "xy", "rows": "y"}.get(mesh, "")
 
 
 def run_checked(sim, state: FluidState, impulses, segment: int = 100,

@@ -1,7 +1,7 @@
 """Live browser viewer: HTTP multipart-PNG streaming.
 
 The reference displays the fluid in an OpenGL window (Main.cpp:166-180);
-headless TPU hosts have no display, so this serves the live view to a
+headless GPU hosts have no display, so this serves the live view to a
 browser as a ``multipart/x-mixed-replace`` PNG stream (the MJPEG idiom).
 The server binds 127.0.0.1 by default — the ``/input`` route accepts
 impulses and a quit request, so exposing it to the network
@@ -39,12 +39,12 @@ from cudafluidsimulation_tpu.utils.native_sink import load_native_lib
 # JS that posts drags back to /input (image pixel coords; q quits) — the
 # reference's mouse capture (Main.cpp:213-243), browser edition.
 PAGE_HTML = (
-    b"<!doctype html><html><head><title>tpu-stable-fluids</title>"
+    b"<!doctype html><html><head><title>stable-fluids</title>"
     b"<style>body{background:#111;color:#ddd;font-family:monospace;"
     b"text-align:center}img{image-rendering:pixelated;margin-top:1em;"
     b"max-width:96vw;max-height:88vh;touch-action:none;cursor:crosshair}"
     b"</style></head><body>"
-    b"<div>tpu-stable-fluids &mdash; live "
+    b"<div>stable-fluids &mdash; live "
     b"(drag to splat &middot; q quits)</div>"
     b"<img id='v' src='/stream' alt='live stream' draggable='false'>"
     b"<script>"

@@ -2,8 +2,8 @@
 
 The reference accumulates running averages around every stage of the ACTUAL
 run (cpuFluidSim.cpp:329-385, GPUFluidSim.cu:609-712) and prints them at
-exit.  The TPU production path must not sync per stage (it would drain the
-pipeline), so `Simulation.stage_timings` samples stages out-of-band instead.
+exit.  The production path must not sync per stage (it would drain the
+device's queue), so `Simulation.stage_timings` samples stages out-of-band instead.
 This module provides the DECOMPOSED in-run variant for diagnostics (CLI
 ``--report-mode decomposed``): it wraps the op namespace so every op call
 blocks and bills its wall time to the reference's stage buckets, and splits
@@ -95,19 +95,11 @@ def timed_ops(base, totals: Dict[str, float]) -> types.SimpleNamespace:
         totals["Force"] = totals.get("Force", 0.0) + time.perf_counter() - t0
         return out
 
-    def advect_both(u, v, dye, dt, decay_rate, vel_stats=None,
-                    return_stats=False):
+    def advect_both(u, v, dye, dt, decay_rate):
         # decompose the (optional, sharded-namespace) fused advection through
         # the wrapped sub-ops so Advect billing survives namespace patching —
         # same rule as the pressure_project/diffuse_multi_splat decompositions
-        if return_stats:
-            u2, v2, st = ns.advect_velocity(u, v, dt, decay_rate,
-                                            vel_stats=vel_stats,
-                                            return_stats=True)
-            dye2 = ns.advect_dye(dye, u2, v2, dt, decay_rate, vel_stats=st)
-            return u2, v2, dye2, st
-        u2, v2 = ns.advect_velocity(u, v, dt, decay_rate,
-                                    vel_stats=vel_stats)
+        u2, v2 = ns.advect_velocity(u, v, dt, decay_rate)
         return u2, v2, ns.advect_dye(dye, u2, v2, dt, decay_rate)
 
     def render_frame(dye, pos, intense, radius, active):
@@ -117,25 +109,11 @@ def timed_ops(base, totals: Dict[str, float]) -> types.SimpleNamespace:
         bloomed = ns.apply_bloom(rgba, pos, intense, radius)  # bills Bloom
         return jnp.where(jnp.asarray(active), bloomed, rgba)
 
-    def pressure_project_mg(u, v, cycles, tol=0.0, max_cycles=8, half=True,
-                            return_stats=False):
-        # decompose the fused mg projection the same way: divergence /
-        # pressure_solve_mg / project all bill their reference buckets
-        d = ns.divergence(u, v, half)
-        p = ns.pressure_solve_mg(d, cycles, tol=tol, max_cycles=max_cycles)
-        if return_stats:
-            u2, v2, st = ns.project(u, v, p, return_stats=True)
-            return u2, v2, p, st
-        u2, v2 = ns.project(u, v, p)
-        return u2, v2, p
-
     ns.pressure_project = pressure_project
     ns.diffuse_multi_splat = diffuse_multi_splat
     ns.render_frame = render_frame
     if hasattr(base, "advect_both"):
         ns.advect_both = advect_both
-    if hasattr(base, "pressure_project_mg"):
-        ns.pressure_project_mg = pressure_project_mg
     return ns
 
 

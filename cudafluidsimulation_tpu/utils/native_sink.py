@@ -2,7 +2,7 @@
 
 The reference streams pixels through a native display path (CUDA surface ->
 GL texture -> blit, GPUFluidSim.cu:594-601 / Main.cpp:166-180); this is its
-headless TPU-rebuild analog: frames are pushed non-blocking into a C++ ring
+headless analog: frames are pushed non-blocking into a C++ ring
 buffer and a background thread PNG-encodes and writes them, so the simulation
 loop never stalls on IO.  Falls back to the pure-Python writer
 (utils.png.write_png) when the shared library is unavailable.

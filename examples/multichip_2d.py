@@ -1,7 +1,8 @@
-"""2-D (rows x cols) spatial-mesh rollout — runs anywhere via a virtual
-8-device CPU mesh, and unchanged on a real TPU slice.
+"""2-D (rows x cols) spatial-mesh rollout on a 2x2 mesh: four GPUs of one
+host, or four virtual CPU devices.
 
-    python examples/multichip_2d.py
+    python examples/multichip_2d.py                    # four GPUs
+    JAX_PLATFORMS=cpu python examples/multichip_2d.py  # four CPU devices
 """
 
 import os
@@ -9,25 +10,18 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-# fake 8 host devices BEFORE jax initializes (no-op on a real 8-chip slice)
+# four host devices for the CPU platform, set BEFORE jax initializes (it
+# changes nothing on the GPUs)
 flags = os.environ.get("XLA_FLAGS", "")
 if "xla_force_host_platform_device_count" not in flags:
     os.environ["XLA_FLAGS"] = (
-        flags + " --xla_force_host_platform_device_count=8").strip()
+        flags + " --xla_force_host_platform_device_count=4").strip()
 
 import jax
 import numpy as np
 
 
 def main():
-    # Pin the platform BEFORE any jax.devices() probe: the first backend
-    # touch latches platform selection, so a later config update is a no-op
-    # (and a CPU mesh + default-TPU arrays fails with a cross-platform
-    # transfer — see __graft_entry__.dryrun_multichip).  On a real 8-chip
-    # slice run with CUDAFLUIDSIM_MESH_PLATFORM=tpu.
-    platform = os.environ.get("CUDAFLUIDSIM_MESH_PLATFORM", "cpu")
-    jax.config.update("jax_platforms", platform)
-
     from cudafluidsimulation_tpu import FluidConfig, init_state
     from cudafluidsimulation_tpu.parallel.halo import measure_halo_traffic
     from cudafluidsimulation_tpu.parallel.shardmap2d import (
@@ -39,12 +33,12 @@ def main():
     from cudafluidsimulation_tpu.utils.impulse import orbit_impulse
 
     devs = jax.devices()
-    mesh = make_mesh2d(2, 4, devices=devs)
-    print(f"mesh: 2x4 over {devs[0].platform} devices")
+    mesh = make_mesh2d(2, 2, devices=devs)
+    print(f"mesh: 2x2 over {devs[0].platform} devices")
 
     n = 512
-    cfg = FluidConfig.gpu_reference(nx=n, ny=n, backend="ref",
-                                    diffusion_iters=4, pressure_iters=10)
+    cfg = FluidConfig.gpu_reference(nx=n, ny=n, diffusion_iters=4,
+                                    pressure_iters=10)
     run = make_shardmap2d_rollout(cfg, mesh)
     state = shard_state_2d(init_state(cfg), mesh)
     imp = orbit_impulse(50, cfg.dt, center=(n / 2, n / 2), radius=n / 8)

@@ -4,7 +4,7 @@
 // surface write into a GL texture and are blitted by the window loop
 // (GPUFluidSim.cu:594-601, Main.cpp:166-180) — the host Python equivalent
 // must not stall the simulation while encoding/writing frames.  This sink is
-// that native piece for the TPU rebuild: a producer/consumer ring buffer
+// that native piece: a producer/consumer ring buffer
 // where the simulation thread pushes RGBA frames (non-blocking, drop-oldest
 // like a real-time display) and a background thread encodes them to PNG
 // (zlib) and writes them to disk.

@@ -1,7 +1,7 @@
 // Native HTTP live-view server.
 //
 // The reference shows the simulation in an OpenGL window (Main.cpp:166-180);
-// this is the headless TPU rebuild's live display: a tiny dependency-free
+// this is the headless live display: a tiny dependency-free
 // HTTP server that streams the latest frame to any browser as a
 // multipart/x-mixed-replace MJPEG stream (the repo's own baseline-JPEG
 // encoder, jpeg_encode.h; /frame stays PNG for lossless probing).
@@ -71,9 +71,9 @@ namespace {
 // JS posting to /input) is owned by utils/http_view.py PAGE_HTML and pushed
 // in via hv_set_page at open — ONE copy serves both server backends.
 const char* kPage =
-    "<!doctype html><html><head><title>tpu-stable-fluids</title></head>"
+    "<!doctype html><html><head><title>stable-fluids</title></head>"
     "<body style=\"background:#111;color:#ddd;text-align:center;"
-    "font-family:monospace\"><div>tpu-stable-fluids &mdash; live</div>"
+    "font-family:monospace\"><div>stable-fluids &mdash; live</div>"
     "<img src=\"/stream\" alt=\"live stream\"></body></html>";
 
 // value of ?key= in a request path, false when absent

@@ -20,8 +20,8 @@
 // Not implemented (not needed here): progressive scans, arithmetic coding,
 // 4:4:4 / grayscale modes, EXIF.
 
-#ifndef TPUFLUIDS_JPEG_ENCODE_H_
-#define TPUFLUIDS_JPEG_ENCODE_H_
+#ifndef FLUIDS_JPEG_ENCODE_H_
+#define FLUIDS_JPEG_ENCODE_H_
 
 #include <cmath>
 #include <cstdint>
@@ -427,4 +427,4 @@ inline std::vector<uint8_t> encode_jpeg(const uint8_t* rgba, int w, int h,
 
 }  // namespace jpegenc
 
-#endif  // TPUFLUIDS_JPEG_ENCODE_H_
+#endif  // FLUIDS_JPEG_ENCODE_H_

@@ -1,7 +1,7 @@
 """Independent NumPy oracle for the reference numerics.
 
 A second, from-the-math implementation (float32 numpy) of every stage in
-cpuFluidSim.cpp / GPUFluidSim.cu, used to golden-test the jnp/pallas
+cpuFluidSim.cpp / GPUFluidSim.cu, used to golden-test the jnp/CUDA
 backends.  Deliberately written with numpy fancy indexing rather than the
 package's shift/concat style so the two implementations share no code.
 """

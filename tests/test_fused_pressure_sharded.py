@@ -1,5 +1,9 @@
-"""Fused sharded pressure_project (divergence/project folded into the burst
-halo exchanges) vs the single-device jnp oracle, on both mesh layouts.
+"""The sharded k-burst Jacobi schedule vs global Jacobi, on both meshes.
+
+Fused sharded pressure_project (divergence/project folded into the burst
+halo exchanges) vs the single-device jnp oracle, on both mesh layouts, and
+the plain diffusion / pressure bursts (k local sweeps per k-deep exchange)
+vs the global sweeps at the same geometries.
 
 The fused path must be numerically indistinguishable from the composed
 divergence -> pressure_solve -> project chain (same sweep math, same clamped
@@ -38,24 +42,21 @@ def _fields(seed=0):
 
 
 def _rows_pp(mesh, iters, half):
-    ns = sharded_ops("x", H, 15, use_pallas=True, pallas_burst=BURST)
+    ns = sharded_ops("x", H, 15, burst=BURST)
     return shard_map(
         lambda uu, vv: ns.pressure_project(uu, vv, iters, half),
         mesh=mesh, in_specs=(P("x", None), P("x", None)),
         out_specs=(P("x", None), P("x", None), P("x", None)),
-        check_vma=False,
     )
 
 
 def _2d_pp(mesh, iters, half):
     nr, nc = mesh.shape["rows"], mesh.shape["cols"]
-    ns = sharded_ops_2d("rows", "cols", H, W, 15, use_pallas=True,
-                        pallas_burst=BURST)
+    ns = sharded_ops_2d("rows", "cols", H, W, 15, burst=BURST)
     sp = P("rows", "cols")
     return shard_map(
         lambda uu, vv: ns.pressure_project(uu, vv, iters, half),
         mesh=mesh, in_specs=(sp, sp), out_specs=(sp, sp, sp),
-        check_vma=False,
     )
 
 
@@ -99,12 +100,11 @@ def test_rows_small_shard_falls_back():
     u, v = _fields(seed=7)
     u, v = u[:64], v[:64]
     mesh = make_mesh(8, ens=1)
-    ns = sharded_ops("x", 64, 15, use_pallas=True, pallas_burst=BURST)
+    ns = sharded_ops("x", 64, 15, burst=BURST)
     fn = shard_map(
         lambda uu, vv: ns.pressure_project(uu, vv, 10, True),
         mesh=mesh, in_specs=(P("x", None), P("x", None)),
         out_specs=(P("x", None), P("x", None), P("x", None)),
-        check_vma=False,
     )
     u2, v2, p = jax.jit(fn)(u, v)
     ur, vr, pr = ref.pressure_project(u, v, 10, True)
@@ -121,12 +121,11 @@ def test_rows_fused_geometry_fuzz(burst, iters):
     do not divide the halo depth."""
     u, v = _fields(seed=burst * 100 + iters)
     mesh = make_mesh(8, ens=1)
-    ns = sharded_ops("x", H, 15, use_pallas=True, pallas_burst=burst)
+    ns = sharded_ops("x", H, 15, burst=burst)
     fn = shard_map(
         lambda uu, vv: ns.pressure_project(uu, vv, iters, True),
         mesh=mesh, in_specs=(P("x", None), P("x", None)),
         out_specs=(P("x", None), P("x", None), P("x", None)),
-        check_vma=False,
     )
     u2, v2, p = jax.jit(fn)(u, v)
     ur, vr, pr = ref.pressure_project(u, v, iters, True)
@@ -160,3 +159,65 @@ def test_fused_exchange_schedule(iters, pairs):
     sds = jax.ShapeDtypeStruct((H, W), jnp.float32)
     jaxpr = jax.make_jaxpr(fn)(sds, sds)
     assert _count_ppermute(jaxpr.jaxpr) == 2 * pairs
+
+
+def _bursts_fn(ns, mesh, op, iters, spec):
+    if op == "diffuse":
+        coeffs = jnp.asarray([0.8, 0.8, 0.5, 0.5, 0.5], jnp.float32)
+        fn = lambda x: ns.diffuse_multi(x, 1.0 / 60.0, coeffs, iters)  # noqa
+        specs = P(None, *spec)
+    elif op == "diffuse_velocity":
+        fn = lambda x: ns.diffuse(x, 1.0 / 60.0, 0.8, iters)  # noqa: E731
+        specs = P(None, *spec)
+    else:
+        fn = lambda x: ns.pressure_solve(x, iters)  # noqa: E731
+        specs = P(*spec)
+    return jax.jit(shard_map(fn, mesh=mesh, in_specs=specs, out_specs=specs))
+
+
+def _global(op, x, iters):
+    if op == "diffuse":
+        return ref.diffuse_multi(x, 1.0 / 60.0, [0.8, 0.8, 0.5, 0.5, 0.5],
+                                 iters)
+    if op == "diffuse_velocity":
+        return ref.diffuse(x, 1.0 / 60.0, 0.8, iters)
+    return ref.pressure_solve(x, iters)
+
+
+_SHAPES = {"diffuse": (5, H, W), "diffuse_velocity": (2, H, W),
+           "pressure": (H, W)}
+_OPS = list(_SHAPES)
+
+
+@requires_multidevice
+@pytest.mark.parametrize("op", _OPS)
+@pytest.mark.parametrize("burst,iters", [(8, 20), (8, 30), (3, 7), (5, 11),
+                                         (8, 40)])
+def test_rows_bursts_match_global_jacobi(op, burst, iters):
+    """k sweeps per k-deep mirror exchange == iters global sweeps: the
+    clamp error at each padded shard edge stays inside the k rows sliced
+    off (the trapezoid), and the mirror fill is the true-edge ghost."""
+    x = jax.random.normal(jax.random.PRNGKey(burst * 100 + iters),
+                          _SHAPES[op])
+    ns = sharded_ops("x", H, 15, burst=burst)
+    got = _bursts_fn(ns, make_mesh(8, ens=1), op, iters, ("x", None))(x)
+    exp = _global(op, x, iters)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(exp), atol=2e-6,
+                               rtol=1e-6)
+
+
+@requires_multidevice
+@pytest.mark.parametrize("op", _OPS)
+@pytest.mark.parametrize("shape", [(2, 4), (4, 2)])
+@pytest.mark.parametrize("burst,iters", [(8, 20), (5, 11)])
+def test_2d_bursts_match_global_jacobi(op, shape, burst, iters):
+    """Corner-carrying 2-D exchanges: the k-sweep dependence is the L1
+    ball, so the diagonal halo blocks must arrive too."""
+    x = jax.random.normal(jax.random.PRNGKey(burst * 10 + iters),
+                          _SHAPES[op])
+    ns = sharded_ops_2d("rows", "cols", H, W, 15, burst=burst)
+    got = _bursts_fn(ns, make_mesh2d(*shape), op, iters,
+                     ("rows", "cols"))(x)
+    exp = _global(op, x, iters)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(exp), atol=2e-6,
+                               rtol=1e-6)

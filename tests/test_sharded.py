@@ -97,14 +97,18 @@ def test_sharded_ensemble_rollout():
 
 @requires_multidevice
 def test_auto_spmd_never_traces_pallas():
-    """XLA's SPMD partitioner cannot partition an opaque pallas_call: on a
-    >1-device mesh the auto-sharded builders must fall back to the jnp ops
-    (the explicit shard_map paths are the pallas-composed ones)."""
+    """XLA's SPMD partitioner cannot partition an opaque kernel call (the
+    CUDA backend's ffi_call): on a >1-device mesh the auto-sharded builders
+    take the jnp ops only and refuse a kernel backend (the explicit
+    shard_map paths run the kernel per shard)."""
     from cudafluidsimulation_tpu.utils.impulse import orbit_impulse
 
-    cfg = FluidConfig.gpu_reference(nx=256, ny=256, backend="pallas",
-                                    diffusion_iters=4, pressure_iters=8)
     mesh = make_mesh(8, ens=1)
+    with pytest.raises(ValueError):
+        make_sharded_step(FluidConfig.gpu_reference(nx=256, ny=256,
+                                                    backend="cuda"), mesh)
+    cfg = FluidConfig.gpu_reference(nx=256, ny=256, backend="ref",
+                                    diffusion_iters=4, pressure_iters=8)
     step = make_sharded_step(cfg, mesh)
     st = init_state(cfg)
     imp = slice_step(orbit_impulse(1, cfg.dt, center=(128.0, 128.0),
@@ -122,4 +126,4 @@ def test_auto_spmd_never_traces_pallas():
         return out
 
     names = prims(jax.make_jaxpr(step)(st, imp).jaxpr, set())
-    assert "pallas_call" not in names
+    assert not names & {"pallas_call", "ffi_call", "custom_call"}

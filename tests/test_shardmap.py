@@ -102,18 +102,20 @@ def test_shardmap_rollout_matches_single_device():
 
 
 @requires_multidevice
-def test_shardmap_with_pallas_bursts_matches_ref():
-    """backend='pallas' on the shard_map path: per-shard burst kernels with
-    k-deep mirror halo exchanges must match the sweep-by-sweep ref path."""
-    cfg_ref = mild_cfg()
-    cfg_pal = mild_cfg(backend="pallas")
+def test_shardmap_with_pallas_bursts_matches_ref(monkeypatch):
+    """The shard_map path's k-deep mirror halo bursts (k = BURST local
+    sweeps per exchange) must match the sweep-by-sweep schedule (k = 1)."""
+    from cudafluidsimulation_tpu.parallel import shardmap_step
+
+    cfg_ref = cfg_pal = mild_cfg()
     mesh = make_mesh(8, ens=1)
     imp = orbit_impulse(3, cfg_ref.dt, center=(64.0, 32.0), radius=10.0)
 
     st_r = shard_state(init_state(cfg_ref), mesh)
     st_p = shard_state(init_state(cfg_pal), mesh)
-    step_r = make_shardmap_step(cfg_ref, mesh)
     step_p = make_shardmap_step(cfg_pal, mesh)
+    monkeypatch.setattr(shardmap_step, "BURST", 1)
+    step_r = make_shardmap_step(cfg_ref, mesh)
     for i in range(3):
         one = slice_step(imp, i)
         st_r = step_r(st_r, one)
@@ -139,66 +141,10 @@ def test_halo_traffic_accounting():
     t = measure_halo_traffic(cfg, mesh)
     assert t["ppermute_per_step"] > 0
     assert t["ppermute_per_step"] % 2 == 0
-    assert t["ici_bytes_per_step_per_device"] > 0
-    # the ref backend exchanges once per sweep INSIDE a lax.scan; the scan
-    # trip count must be expanded (100 pressure + 20 stacked-diffusion
-    # sweeps + advect/curl/div/project singles = 124 pairs; curl and the
-    # fused 5-channel advection exchange apply to both backends)
-    assert t["exchange_pairs_per_step"] == 124
-
-    # the pallas path bursts k sweeps per exchange, fuses div/project into
-    # the pressure bursts, curl into one 2-deep velocity exchange, and both
-    # advections onto one 5-channel exchange: advect 1 + vorticity 1 +
-    # diffuse 3 + pressure (1 + 13 - 1) = 18 pairs at burst=8
-    cfg_p = FluidConfig.gpu_reference(nx=8192, ny=8192, pressure_iters=100,
-                                      backend="pallas")
-    tp = measure_halo_traffic(cfg_p, mesh)
-    assert tp["exchange_pairs_per_step"] == 18
-
-
-@requires_multidevice
-def test_fast_flags_reach_sharded_kernels():
-    """config.fast_dye / fast_velocity must reach the sharded advect kernels
-    (bf16-packed cores in the lowered step) — round-3 advisor finding: the
-    flags silently no-op'd on multi-chip runs."""
-    from cudafluidsimulation_tpu.utils.impulse import single
-
-    mesh = make_mesh(8, ens=1)
-
-    def jaxpr_for(**kw):
-        cfg = mild_cfg(backend="pallas", max_displacement=8, jacobi_burst=4,
-                       **kw)
-        step = make_shardmap_step(cfg, mesh)
-        st = shard_state(init_state(cfg), mesh)
-        imp = single((64.0, 64.0), (60.0, 62.0), True, cfg.dt)
-        return str(jax.make_jaxpr(step)(st, imp))
-
-    # the packed cores pack via i32 bitcast+shift (no bf16 dtype appears);
-    # shift_right_logical is unique to them in this step
-    assert "shift_right_logical" not in jaxpr_for()
-    assert "shift_right_logical" in jaxpr_for(fast_dye=True)
-    assert "shift_right_logical" in jaxpr_for(fast_velocity=True)
-
-
-@requires_multidevice
-def test_fast_flags_reach_2d_mesh_kernels():
-    from cudafluidsimulation_tpu.parallel.shardmap2d import (
-        make_mesh2d,
-        make_shardmap2d_step,
-        shard_state_2d,
-    )
-    from cudafluidsimulation_tpu.utils.impulse import single
-
-    mesh = make_mesh2d(2, 4)
-
-    def jaxpr_for(**kw):
-        cfg = FluidConfig.gpu_reference(
-            nx=256, ny=128, backend="pallas", max_displacement=8,
-            diffusion_iters=4, pressure_iters=8, jacobi_burst=4, **kw)
-        step = make_shardmap2d_step(cfg, mesh)
-        st = shard_state_2d(init_state(cfg), mesh)
-        imp = single((128.0, 64.0), (124.0, 62.0), True, cfg.dt)
-        return str(jax.make_jaxpr(step)(st, imp))
-
-    assert "shift_right_logical" not in jaxpr_for()
-    assert "shift_right_logical" in jaxpr_for(fast_dye=True)
+    assert t["halo_bytes_per_step_per_device"] > 0
+    # k sweeps per exchange, div/project folded into the pressure bursts,
+    # curl into one 2-deep velocity exchange, and both advections onto one
+    # 5-channel exchange: advect 1 + vorticity 1 + diffuse 3 + pressure
+    # (1 + 13 - 1) = 18 pairs at burst=8
+    assert t["exchange_pairs_per_step"] == 18
+    assert t["sweeps_per_exchange_pair"] == round(200 / 18, 3)

@@ -83,9 +83,10 @@ def test_2d_rollout_matches_stepwise():
 
 @requires_multidevice
 def test_2d_mesh_pallas_composition():
-    """Per-device pallas kernels on the 2-D-halo-padded local views
-    (interpret mode off-TPU) match the single-chip pallas step."""
-    cfg = FluidConfig.gpu_reference(nx=128, ny=128, backend="pallas",
+    """The default backend's Jacobi bursts on the 2-D-halo-padded local
+    views (the CUDA kernel on a GPU, jnp sweeps here) match the
+    single-device step."""
+    cfg = FluidConfig.gpu_reference(nx=128, ny=128, backend="auto",
                                     diffusion_iters=4, pressure_iters=6,
                                     max_displacement=7, **MILD)
     mesh = make_mesh2d(2, 2)

@@ -159,7 +159,7 @@ def test_sharded_mg_exchange_schedule_pinned():
 
     mesh = make_mesh(8, ens=1)
     cfg = FluidConfig.gpu_reference(nx=8192, ny=8192, pressure_iters=100,
-                                    backend="pallas",
+                                    backend="ref",
                                     pressure_solver="multigrid", mg_cycles=2)
     t = measure_halo_traffic(cfg, mesh)
     assert t["exchange_pairs_per_step"] == 55, t
